@@ -6,11 +6,18 @@ Phases: (1) the device and its power limit; (2) build the CUDA kernels
 from `volcano_tpu_torch/csrc`; (3) hold the flash-forward kernel against
 its plain PyTorch version at every shape and dtype it serves; (4) time
 the kernel, its plain version and, as a yardstick only,
-`scaled_dot_product_attention` at the serving shape; (5) full-width
-parity of the model's flash path against its eager attention path in
-f32; (6) the serving slice: the flagship d2048-L8 model in bf16 behind
+`scaled_dot_product_attention` at the serving shape; (5) the same two
+checks for the backward kernels (dQ, dK/dV) against `flash_bwd_plain`,
+with the backward of `scaled_dot_product_attention` as the yardstick;
+(6) full-width parity of the model's flash path against its eager
+attention path in f32, on logits and on every parameter's gradient;
+(7) the serving slice: the flagship d2048-L8 model in bf16 behind
 `BatchedServer` at batch 8 x 2048 tokens, with the kernel's launches
-counted, then the replica entry point `serve.run`.
+counted, then the replica entry point `serve.run`; (8) the training
+slice: six steps of the flagship d2048-L8 model in bf16 at batch
+8 x 2048 through `train.make_train_step`, with every kernel's launches
+counted, the step time, tokens/s and model FLOP/s, a profile of one
+step, and the remat check.
 
 Any failure raises, so the exit code is not 0.  Without a GPU it exits
 non-zero before printing any result.  The last line is the device
@@ -22,6 +29,7 @@ from __future__ import annotations
 
 import importlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -39,6 +47,15 @@ ATOL_F32 = 1e-4   # f32: the kernel and the plain version differ only in sum ord
 # by one step: 1e-2 absolute plus 1e-2 relative covers it.
 TOL_BF16 = 1e-2
 ATOL_PARITY = 2e-3  # f32 logits, flash vs eager attention over 2 layers
+# f32 gradients, flash vs eager attention over 2 layers: sum order only,
+# but the backward's sums cancel, so each leaf is held relative to its
+# largest gradient
+GRAD_PARITY_SHARE = 1e-3
+# remat against no remat: the same ops on the same values, but for the
+# order in which scatter-adds (the embedding's gradient) accumulate
+REMAT_SHARE = 1e-5
+TRAIN_STEPS = 6
+TRAIN_BATCH = 8
 
 
 def log(msg: str) -> None:
@@ -93,13 +110,12 @@ def phase_build(build):
     log(f"[build] kernels built and loaded in {time.monotonic() - t0:.1f} s "
         f"({build.build_dir()})")
     for line in build.build_log().splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if any(k in line for k in ("entry function", "registers", "spill",
+                                   "error")):
             log(f"[build] {line.strip()}")
 
 
-def phase_kernel_vs_plain(fa):
-    """Kernel against its plain version for out and lse; returns the
-    max out error at the serving shape."""
+def kernel_cases():
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         for causal in (True, False):
@@ -107,8 +123,19 @@ def phase_kernel_vs_plain(fa):
                           (1, 256, 2, 256)):
                 cases.append((shape, dtype, causal))
     cases.append((SLICE_SHAPE, torch.bfloat16, True))
+    return cases
+
+
+def bound(flops, nbytes, flop_peak, byte_peak):
+    op_ms, byte_ms = flops / flop_peak * 1e3, nbytes / byte_peak * 1e3
+    return max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else "bytes"
+
+
+def phase_kernel_vs_plain(fa):
+    """Kernel against its plain version for out and lse; returns the
+    max out error at the serving shape."""
     slice_err = None
-    for i, (shape, dtype, causal) in enumerate(cases):
+    for i, (shape, dtype, causal) in enumerate(kernel_cases()):
         q, k, v = rand_qkv(shape, dtype, seed=100 + i)
         out, lse = fa._launch(q, k, v, causal)
         torch.cuda.synchronize()
@@ -148,9 +175,7 @@ def phase_timing(fa, flop_peak, byte_peak):
     # two products of 2*d FLOP each
     flops = 4.0 * b * h * d * t * (t + 1) / 2
     nbytes = 4 * b * t * h * d * 2 + b * h * t * 4   # q,k,v,out + lse
-    op_ms, byte_ms = flops / flop_peak * 1e3, nbytes / byte_peak * 1e3
-    bound_ms = max(op_ms, byte_ms)
-    bound_by = "operations" if op_ms >= byte_ms else "bytes"
+    bound_ms, bound_by = bound(flops, nbytes, flop_peak, byte_peak)
     log(f"[timing] {list(SLICE_SHAPE)} bf16 causal: kernel {kernel_ms:.4f} ms "
         f"({flops / kernel_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
         f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
@@ -161,9 +186,13 @@ def phase_timing(fa, flop_peak, byte_peak):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-def phase_parity(model):
+def full_f32():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def phase_parity(model):
+    full_f32()
     cfg_flash = model.flagship_config(n_layers=2, dtype=torch.float32)
     cfg_eager = model.flagship_config(n_layers=2, dtype=torch.float32,
                                       use_flash_attention=False)
@@ -186,42 +215,190 @@ def phase_parity(model):
     return err
 
 
-def profile_forward(fwd, batch):
-    """Device time of one forward by kernel, from torch.profiler: the
-    flash kernel, the matmuls (cuBLAS) and the rest; and the device's
-    idle share of the forward's host wall time."""
+def phase_bwd_vs_plain(fa):
+    """Both backward kernels against `flash_bwd_plain` for dq, dk and
+    dv, on the forward kernel's out and lse; returns the largest error
+    of each kernel at the training shape."""
+    slice_err = None
+    for i, (shape, dtype, causal) in enumerate(kernel_cases()):
+        q, k, v = rand_qkv(shape, dtype, seed=200 + i)
+        do = rand_qkv(shape, dtype, seed=300 + i)[0]
+        out, lse = fa._launch(q, k, v, causal)
+        delta = fa.bwd_delta(out, do)
+        dq = fa._launch_dq(q, k, v, do, lse, delta, causal)
+        dk, dv = fa._launch_dkv(q, k, v, do, lse, delta, causal)
+        torch.cuda.synchronize()
+        ref = fa.flash_bwd_plain(q, k, v, out, lse, do, causal)
+        errs = [(x.float() - r.float()).abs().max().item()
+                for x, r in zip((dq, dk, dv), ref)]
+        tag = f"{list(shape)} {str(dtype)[6:]} causal={causal}"
+        big = max(r.float().abs().max().item() for r in ref)
+        log(f"[bwd kernel] {tag}: max|err| dq {errs[0]:.3e}, dk "
+            f"{errs[1]:.3e}, dv {errs[2]:.3e} (max|grad| {big:.3e})")
+        for name, x, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+            if not torch.isfinite(x.float()).all():
+                raise AssertionError(f"non-finite {name} at {tag}")
+            if dtype == torch.float32:
+                torch.testing.assert_close(x, r, atol=ATOL_F32, rtol=0.0)
+            else:
+                torch.testing.assert_close(x.float(), r.float(),
+                                           atol=TOL_BF16, rtol=TOL_BF16)
+        if shape == SLICE_SHAPE:
+            slice_err = {"dq": errs[0], "dkv": max(errs[1:])}
+        del q, k, v, do, out, lse, delta, dq, dk, dv, ref
+    torch.cuda.empty_cache()
+    return slice_err
+
+
+def phase_bwd_timing(fa, flop_peak, byte_peak):
+    """The dQ and dK/dV kernels alone, `flash_bwd_plain` and, as the
+    yardstick of the two kernels together, the backward of
+    `scaled_dot_product_attention` (grad of a stored output)."""
+    b, t, h, d = SLICE_SHAPE
+    q, k, v = rand_qkv(SLICE_SHAPE, torch.bfloat16, seed=17)
+    do = rand_qkv(SLICE_SHAPE, torch.bfloat16, seed=18)[0]
+    out, lse = fa._launch(q, k, v, True)
+    delta = fa.bwd_delta(out, do)
+    dq_ms = cuda_time_ms(
+        lambda: fa._launch_dq(q, k, v, do, lse, delta, True), iters=20)
+    dkv_ms = cuda_time_ms(
+        lambda: fa._launch_dkv(q, k, v, do, lse, delta, True), iters=20)
+    delta_ms = cuda_time_ms(lambda: fa.bwd_delta(out, do), iters=20)
+    bwd_ms = cuda_time_ms(
+        lambda: fa.flash_bwd(q, k, v, out, lse, do, True), iters=20)
+    plain_ms = cuda_time_ms(
+        lambda: fa.flash_bwd_plain(q, k, v, out, lse, do, True), iters=3,
+        warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    ref = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    library_ms = cuda_time_ms(lambda: torch.autograd.grad(
+        ref, (qt, kt, vt), dot, retain_graph=True), iters=20)
+    pairs = b * h * t * (t + 1) / 2
+    tensor = b * t * h * d * 2
+    rows = b * h * t * 4
+    # dQ: S, dP, dQ products; reads q,k,v,do,lse,delta, writes dq
+    dq_bound = bound(3 * 2.0 * d * pairs, 5 * tensor + 2 * rows,
+                     flop_peak, byte_peak)
+    # dK/dV: S, dP, dV, dK products; reads q,k,v,do,lse,delta, writes dk,dv
+    dkv_bound = bound(4 * 2.0 * d * pairs, 6 * tensor + 2 * rows,
+                      flop_peak, byte_peak)
+    log(f"[bwd timing] {list(SLICE_SHAPE)} bf16 causal: dq kernel "
+        f"{dq_ms:.4f} ms (bound {dq_bound[0]:.4f}, {dq_bound[1]}), dkv "
+        f"kernel {dkv_ms:.4f} ms (bound {dkv_bound[0]:.4f}, "
+        f"{dkv_bound[1]}); both {dq_ms + dkv_ms:.4f} ms against sdpa "
+        f"backward {library_ms:.4f} ms; delta glue {delta_ms:.4f} ms; "
+        f"flash_bwd whole {bwd_ms:.4f} ms; plain {plain_ms:.4f} ms")
+    del q, k, v, do, out, lse, delta, qt, kt, vt, ref, dot
+    torch.cuda.empty_cache()
+    return {"dq": dict(ms=dq_ms, bound_ms=dq_bound[0],
+                       bound_by=dq_bound[1]),
+            "dkv": dict(ms=dkv_ms, bound_ms=dkv_bound[0],
+                        bound_by=dkv_bound[1]),
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "delta_ms": delta_ms, "bwd_ms": bwd_ms}
+
+
+def leaf_items(tree):
+    out = [(k, x) for k, x in tree.items() if k != "blocks"]
+    for i, blk in enumerate(tree["blocks"]):
+        out += [(f"blocks.{i}.{k}", x) for k, x in blk.items()]
+    return out
+
+
+def worst_leaf_share(grads, ref):
+    """max over leaves of max|g - ref| / max|ref|, and its leaf."""
+    shares = [((a.float() - b.float()).abs().max().item()
+               / max(b.float().abs().max().item(), 1e-30), name)
+              for (name, a), (_, b) in zip(leaf_items(grads),
+                                           leaf_items(ref))]
+    return max(shares)
+
+
+def phase_grad_parity(model, train):
+    """loss_fn and its gradient for every param leaf, flash path against
+    the eager path, flagship widths at 2 layers, f32 (no TF32), tokens
+    [2, 2048]."""
+    full_f32()
+    cfg_flash = model.flagship_config(n_layers=2, dtype=torch.float32)
+    cfg_eager = model.flagship_config(n_layers=2, dtype=torch.float32,
+                                      use_flash_attention=False)
+    params = model.init_params(
+        cfg_flash, torch.Generator(device="cuda").manual_seed(3), "cuda")
+    t = SLICE_SHAPE[1]
+    batch = train.synthetic_batch(
+        torch.Generator(device="cuda").manual_seed(4), cfg_flash, 2, t)
+    loss_f, g_flash = train.value_and_grad(params, batch, cfg_flash)
+    loss_e, g_eager = train.value_and_grad(params, batch, cfg_eager)
+    share, leaf = worst_leaf_share(g_flash, g_eager)
+    dloss = abs(loss_f.item() - loss_e.item())
+    log(f"[grad parity] flagship d2048 n_layers=2 f32, tokens [2, {t}]: "
+        f"loss flash {loss_f.item():.6f} eager {loss_e.item():.6f}; "
+        f"max|dgrad| / max|grad| {share:.3e} at {leaf} (tolerance "
+        f"{GRAD_PARITY_SHARE})")
+    if not all(torch.isfinite(g).all() for _, g in leaf_items(g_flash)):
+        raise AssertionError("non-finite gradients on the flash path")
+    if dloss > ATOL_PARITY or share > GRAD_PARITY_SHARE:
+        raise AssertionError("flash and eager gradients disagree")
+    del params, g_flash, g_eager
+    torch.cuda.empty_cache()
+    return share
+
+
+def profile_kernels(fn):
+    """(host wall ms, {kernel name: (device ms, launches)}) of fn() under
+    torch.profiler; the window ends with a synchronize."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        fwd(batch)
+        fn()
+        torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
     by_name = {}
     for evt in prof.events():
         if evt.device_type == DeviceType.CUDA:
             ms, n = by_name.get(evt.name, (0.0, 0))
             by_name[evt.name] = (ms + evt.time_range.elapsed_us() / 1e3, n + 1)
-    busy_ms = sum(ms for ms, _ in by_name.values())
+    return wall_ms, by_name
+
+
+def kernel_group(name: str) -> str:
+    low = name.lower()
+    for key in ("flash_bwd_dq", "flash_bwd_dkv", "flash_fwd"):
+        if key in low:
+            return key
+    if any(k in low for k in ("gemm", "nvjet", "xmma", "cutlass")):
+        return "matmul"
+    return "elementwise"
+
+
+def log_top(tag, by_name, n=10):
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]
+    for name, (ms, k) in top:
+        log(f"[{tag}]   {ms:9.3f} ms  x{k:<4d} {name[:110]}")
+
+
+def profile_forward(fwd, batch):
+    """Device time of one forward by kernel, from torch.profiler: the
+    flash kernel, the matmuls (cuBLAS) and the rest; and the device's
+    idle share of the forward's host wall time."""
+    wall_ms, by_name = profile_kernels(lambda: fwd(batch))
     if not by_name:
         log("[profile] the profiler saw no device kernels: not measured")
         return
-    groups = {"flash_fwd": 0.0, "matmul": 0.0, "other": 0.0}
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    groups = {"flash_fwd": 0.0, "matmul": 0.0, "elementwise": 0.0}
     for name, (ms, _) in by_name.items():
-        low = name.lower()
-        if "flash_fwd" in low:
-            groups["flash_fwd"] += ms
-        elif any(k in low for k in ("gemm", "nvjet", "xmma", "cutlass")):
-            groups["matmul"] += ms
-        else:
-            groups["other"] += ms
+        groups[kernel_group(name)] += ms
     log(f"[profile] one forward: host wall {wall_ms:.3f} ms, device busy "
         f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f}; "
         + ", ".join(f"{k} {v:.3f} ms ({v / busy_ms:.1%})"
                     for k, v in groups.items()))
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    for name, (ms, n) in top:
-        log(f"[profile]   {ms:9.3f} ms  x{n:<4d} {name[:110]}")
+    log_top("profile", by_name)
 
 
 def phase_slice(model, serve, fa):
@@ -282,10 +459,170 @@ def phase_slice(model, serve, fa):
                 forward_ms=forward_ms)
 
 
+def launch_counts(fa):
+    return {"flash_fwd": fa.flash_fwd.launches,
+            "flash_bwd_dq": fa.flash_bwd.launches_dq,
+            "flash_bwd_dkv": fa.flash_bwd.launches_dkv}
+
+
+def zero_counts(fa):
+    fa.flash_fwd.launches = 0
+    fa.flash_bwd.launches_dq = 0
+    fa.flash_bwd.launches_dkv = 0
+
+
+def model_flops(cfg, params, b, t):
+    """Model FLOP of one training step by the reference bench's
+    accounting (bench.py `_train_one_config`): 6 x matmul params x
+    tokens, the embedding lookup excluded and the head included, plus 3x
+    the causal attention forward."""
+    total = sum(x.numel() for _, x in leaf_items(params))
+    matmul_params = total - cfg.vocab_size * cfg.d_model
+    attn_fwd = cfg.n_layers * 4.0 * b * cfg.n_heads * t * t * \
+        cfg.head_dim / 2
+    return 6.0 * matmul_params * b * t + 3.0 * attn_fwd, total
+
+
+def profile_step(train, cfg, optimizer, params, state, batch):
+    """One training step under torch.profiler, in the two calls
+    `train_step` makes: the value and gradient of the loss, then the
+    optimizer's update.  Device time by kernel group and the device's
+    idle share of the step's host wall time."""
+    grads = {}
+
+    def grad():
+        grads["g"] = train.value_and_grad(params, batch, cfg)[1]
+
+    wall_g, by_g = profile_kernels(grad)
+    wall_u, by_u = profile_kernels(
+        lambda: optimizer.update(params, grads.pop("g"), state))
+    if not by_g or not by_u:
+        log("[train profile] the profiler saw no device kernels: not "
+            "measured")
+        return None
+    groups = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
+              "matmul": 0.0, "elementwise": 0.0}
+    for name, (ms, _) in by_g.items():
+        groups[kernel_group(name)] += ms
+    groups["optimizer"] = sum(ms for ms, _ in by_u.values())
+    busy = sum(groups.values())
+    wall = wall_g + wall_u
+    log(f"[train profile] one step: host wall {wall:.3f} ms (loss and "
+        f"grad {wall_g:.3f}, update {wall_u:.3f}), device busy "
+        f"{busy:.3f} ms, idle share {1 - busy / wall:.4f}; "
+        + ", ".join(f"{k} {v:.3f} ms ({v / busy:.1%})"
+                    for k, v in groups.items()))
+    log_top("train profile", by_g)
+    log_top("train profile optimizer", by_u, n=5)
+    return dict(groups, wall_ms=wall, busy_ms=busy)
+
+
+def phase_train(model, train, fa, flop_peak):
+    """The training slice: flagship d2048-L8 bf16, batch 8 x 2048, the
+    reference's optimizer defaults, TRAIN_STEPS steps through
+    make_train_step, launches counted per step."""
+    t = SLICE_SHAPE[1]
+    cfg = model.flagship_config()
+    t0 = time.monotonic()
+    params = model.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(5), "cuda")
+    optimizer = train.make_optimizer()
+    state = optimizer.init(params)
+    batch = train.synthetic_batch(
+        torch.Generator(device="cuda").manual_seed(6), cfg, TRAIN_BATCH, t)
+    step = train.make_train_step(cfg, optimizer)
+    torch.cuda.synchronize()
+    log(f"[train] flagship d2048-L8 bf16, batch {TRAIN_BATCH} x {t}: "
+        f"params and optimizer state ready in {time.monotonic() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(fa)
+    step_ms, losses, norms, per_step = [], [], [], []
+    for i in range(TRAIN_STEPS):
+        before = launch_counts(fa)
+        if i < 2:
+            snapshot = [x.detach().clone() for _, x in leaf_items(params)]
+        t1 = time.monotonic()
+        params, state, metrics = step(params, state, batch)
+        loss, norm = metrics["loss"].item(), metrics["grad_norm"].item()
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t1) * 1e3)
+        after = launch_counts(fa)
+        per_step.append({k: after[k] - before[k] for k in after})
+        losses.append(loss)
+        norms.append(norm)
+        if i < 2:
+            same = all(torch.equal(a, x) for a, (_, x) in
+                       zip(snapshot, leaf_items(params)))
+            del snapshot
+            if same != (i == 0):
+                raise AssertionError(
+                    f"params after step {i + 1} are "
+                    f"{'unchanged' if same else 'changed'}: lr(0) = 0 "
+                    "must leave them as they are, lr(1) > 0 must move them")
+    launches = launch_counts(fa)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[train] losses {losses}; grad norms {norms}; step ms "
+        f"{[round(x, 3) for x in step_ms]}; launches per step {per_step}; "
+        f"peak memory {peak_gb:.2f} GB")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError("non-finite loss or grad norm")
+    want = {k: cfg.n_layers for k in launches}
+    if any(c != want for c in per_step):
+        raise AssertionError(f"launches per step {per_step}, want {want}")
+    steady = sorted(step_ms[1:])
+    med_ms = steady[len(steady) // 2]
+    flops, n_params = model_flops(cfg, params, TRAIN_BATCH, t)
+    tflops = flops / med_ms / 1e9
+    res = dict(launches=launches, steps=TRAIN_STEPS, step_ms=med_ms,
+               tokens_per_s=TRAIN_BATCH * t / med_ms * 1e3,
+               model_tflops=tflops, mfu_bf16_dense=tflops * 1e12 / flop_peak,
+               params_m=n_params / 1e6, peak_gb=peak_gb)
+    log(f"[train] median steady step {med_ms:.3f} ms, tokens/s "
+        f"{res['tokens_per_s']:.1f}, model {flops:.4e} FLOP a step "
+        f"(bench.py accounting, {n_params / 1e6:.1f} M params) = "
+        f"{tflops:.1f} TFLOP/s, mfu_bf16_dense {res['mfu_bf16_dense']:.4f}")
+    res["profile"] = profile_step(train, cfg, optimizer, params, state,
+                                  batch)
+    del params, state, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_remat(model, train, fa):
+    """The gradient of one step at n_layers=2 with remat against the same
+    step without it: the forward kernel runs twice a layer with remat,
+    and the gradients agree."""
+    cfg = model.flagship_config(n_layers=2)
+    params = model.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(7), "cuda")
+    batch = train.synthetic_batch(
+        torch.Generator(device="cuda").manual_seed(8), cfg, 2, SLICE_SHAPE[1])
+    zero_counts(fa)
+    loss, grads = train.value_and_grad(params, batch, cfg)
+    plain_counts = launch_counts(fa)
+    zero_counts(fa)
+    loss_r, grads_r = train.value_and_grad(
+        params, batch, model.flagship_config(n_layers=2, remat=True))
+    remat_counts = launch_counts(fa)
+    share, leaf = worst_leaf_share(grads_r, grads)
+    log(f"[remat] n_layers=2 bf16, tokens [2, {SLICE_SHAPE[1]}]: launches "
+        f"without remat {plain_counts}, with remat {remat_counts}; loss "
+        f"{loss.item():.6f} / {loss_r.item():.6f}; max|dgrad| / max|grad| "
+        f"{share:.3e} at {leaf} (tolerance {REMAT_SHARE})")
+    want = {"flash_fwd": 4, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+    if remat_counts != want or plain_counts != dict(want, flash_fwd=2):
+        raise AssertionError("remat launch counts are off")
+    if share > REMAT_SHARE or loss.item() != loss_r.item():
+        raise AssertionError("remat gradients differ")
+    del params, grads, grads_r
+    torch.cuda.empty_cache()
+    return share
+
+
 def main() -> int:
     # the port first: alone, without the repo, the script fails here
     # before it prints anything
-    from volcano_tpu_torch.workloads import model, serve
+    from volcano_tpu_torch.workloads import model, serve, train
     from volcano_tpu_torch.workloads.ops import _build
     fa = importlib.import_module(
         "volcano_tpu_torch.workloads.ops.flash_attention")
@@ -294,23 +631,47 @@ def main() -> int:
     log(f"[device] roofline peaks of {peak_key}: {flop_peak / 1e12:.0f} "
         f"TFLOP/s bf16, {byte_peak / 1e12:.2f} TB/s")
     phase_build(_build)
-    slice_err = phase_kernel_vs_plain(fa)
+    fwd_err = phase_kernel_vs_plain(fa)
     timing = phase_timing(fa, flop_peak, byte_peak)
+    bwd_err = phase_bwd_vs_plain(fa)
+    bwd = phase_bwd_timing(fa, flop_peak, byte_peak)
     phase_parity(model)
+    phase_grad_parity(model, train)
     sl = phase_slice(model, serve, fa)
-    kernels = [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "volcano_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "volcano_tpu/workloads/ops/flash_attention.py:27",
-        "launches": sl["launches"],
-        "launches_per_forward": sl["launches"] / sl["forwards"],
-        "max_abs_err": slice_err, "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
-        "shape": list(SLICE_SHAPE), "dtype": "bfloat16", "causal": True,
-        "card": smi}]
+    tr = phase_train(model, train, fa, flop_peak)
+    phase_remat(model, train, fa)
+    common = {"shape": list(SLICE_SHAPE), "dtype": "bfloat16",
+              "causal": True, "card": smi}
+    src = "volcano_tpu/workloads/ops/flash_attention.py"
+    kernels = [
+        {"name": "flash_fwd", "route": "cuda",
+         "source": "volcano_tpu_torch/csrc/flash_fwd.cu",
+         "replaces": f"{src}:27", "launches": tr["launches"]["flash_fwd"],
+         "launches_serving": sl["launches"], "max_abs_err": fwd_err,
+         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+         "library_ms": timing["library_ms"], **common},
+        {"name": "flash_bwd_dq", "route": "cuda",
+         "source": "volcano_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": f"{src}:102",
+         "launches": tr["launches"]["flash_bwd_dq"],
+         "max_abs_err": bwd_err["dq"], "ms": bwd["dq"]["ms"],
+         "plain_ms": bwd["plain_ms"], "bound_ms": bwd["dq"]["bound_ms"],
+         "bound_by": bwd["dq"]["bound_by"],
+         "library_ms": bwd["library_ms"], **common},
+        {"name": "flash_bwd_dkv", "route": "cuda",
+         "source": "volcano_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": f"{src}:144",
+         "launches": tr["launches"]["flash_bwd_dkv"],
+         "max_abs_err": bwd_err["dkv"], "ms": bwd["dkv"]["ms"],
+         "plain_ms": bwd["plain_ms"], "bound_ms": bwd["dkv"]["bound_ms"],
+         "bound_by": bwd["dkv"]["bound_by"],
+         "library_ms": bwd["library_ms"], **common}]
     log(f"[slice] forward ms (median of steady forwards) "
         f"{sl['forward_ms']:.3f}")
+    log(f"[train] step ms (median of steady steps) {tr['step_ms']:.3f}, "
+        f"tokens/s {tr['tokens_per_s']:.1f}, mfu_bf16_dense "
+        f"{tr['mfu_bf16_dense']:.4f}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 """The port stands alone: nothing under volcano_tpu_torch/, nor
-chip_smoke.py, imports jax or the JAX package (volcano_tpu)."""
+chip_smoke.py, imports jax, the libraries built on it (optax, orbax,
+flax) or the JAX package (volcano_tpu)."""
 
 import ast
 import os
@@ -14,11 +15,14 @@ FILES = sorted((REPO / "volcano_tpu_torch").rglob("*.py")) + \
     [REPO / "chip_smoke.py"]
 
 
+FORBIDDEN = ("jax", "optax", "orbax", "flax", "volcano_tpu")
+
+
 def _forbidden(module: str) -> bool:
-    # the module `volcano_tpu` or anything under `volcano_tpu.`, not the
-    # port (`volcano_tpu_torch` shares the prefix)
-    return module == "jax" or module.startswith("jax.") or \
-        module == "volcano_tpu" or module.startswith("volcano_tpu.")
+    # a forbidden package or anything under it, not a name that merely
+    # shares the prefix (the port, `volcano_tpu_torch`)
+    return any(module == root or module.startswith(root + ".")
+               for root in FORBIDDEN)
 
 
 def _imports(path: Path):
@@ -37,6 +41,8 @@ def _imports(path: Path):
 def test_forbidden_prefix_rule():
     assert _forbidden("volcano_tpu") and _forbidden("volcano_tpu.api")
     assert _forbidden("jax") and _forbidden("jax.numpy")
+    assert _forbidden("optax") and _forbidden("orbax.checkpoint")
+    assert _forbidden("flax.linen")
     assert not _forbidden("volcano_tpu_torch.workloads")
     assert not _forbidden("jaxlib_like")
 
@@ -52,9 +58,11 @@ def test_importing_the_port_loads_no_jax():
             "import volcano_tpu_torch.workloads.serve\n"
             "import volcano_tpu_torch.workloads.model\n"
             "import volcano_tpu_torch.workloads.convert\n"
-            "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith('jax.') or m == 'volcano_tpu' or "
-            "m.startswith('volcano_tpu.')]\n"
+            "import volcano_tpu_torch.workloads.train\n"
+            "import volcano_tpu_torch.entry\n"
+            f"roots = {FORBIDDEN!r}\n"
+            "bad = [m for m in sys.modules if any(m == r or "
+            "m.startswith(r + '.') for r in roots)]\n"
             "assert not bad, bad\n"
             "print('clean')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}

@@ -18,7 +18,8 @@ from volcano_tpu_torch.workloads.device import resolve_device
 
 def _params(jcfg, seed=0):
     jp = jm.init_params(jax.random.key(seed), jcfg)
-    return jp, convert.params_from_jax(jax.tree.map(np.asarray, jp))
+    return jp, convert.params_from_jax(jax.tree.map(np.asarray, jp),
+                                       device="cpu")
 
 
 def _tokens(cfg, b, t, seed=1):
@@ -144,7 +145,7 @@ def test_init_params_layout_matches_jax():
 def test_params_from_jax_widens_bf16():
     jp = jax.tree.map(lambda x: np.asarray(x.astype(jnp.bfloat16)),
                       jm.init_params(jax.random.key(0), jm.tiny_config()))
-    tp = convert.params_from_jax(jp)
+    tp = convert.params_from_jax(jp, device="cpu")
     assert tp["embed"].dtype == torch.float32
     np.testing.assert_array_equal(tp["blocks"][1]["wq"].numpy(),
                                   jp["blocks"][1]["wq"].astype(np.float32))

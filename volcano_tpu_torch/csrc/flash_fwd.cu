@@ -38,9 +38,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "mma_common.cuh"
 
-constexpr float kNegInf = -1e30f;
+namespace {
 
 struct FwdParams {
   const void* q;
@@ -54,49 +54,6 @@ struct FwdParams {
   int B, T, H;
   int causal;
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ uint32_t pack_u16(unsigned short lo,
-                                             unsigned short hi) {
-  return (uint32_t)lo | ((uint32_t)hi << 16);
-}
-
-// x0, x1 -> (hi, lo) bf16 pairs with x ~= hi + lo
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  __nv_bfloat16 h0 = __float2bfloat16_rn(x0);
-  __nv_bfloat16 h1 = __float2bfloat16_rn(x1);
-  __nv_bfloat16 l0 = __float2bfloat16_rn(x0 - __bfloat162float(h0));
-  __nv_bfloat16 l1 = __float2bfloat16_rn(x1 - __bfloat162float(h1));
-  hi = pack_bf16(h0, h1);
-  lo = pack_bf16(l0, l1);
-}
-
-// D[16x8] += A[16x16] * B[16x8], bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 
 // ---------------------------------------------------------------- bf16
 // One block: 4 warps, 64 q rows (16 a warp). mma fragment layout

@@ -13,6 +13,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from volcano_tpu_torch.workloads.device import resolve_device
+
 
 def _tensor(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
     a = np.asarray(a)
@@ -23,10 +25,12 @@ def _tensor(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
-def params_from_jax(tree: Dict[str, Any], device="cpu",
+def params_from_jax(tree: Dict[str, Any], device=None,
                     dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """The JAX `init_params` pytree (as numpy) -> the port's param dict,
-    on `device`, in `dtype` (default: f32, as the JAX params are)."""
+    on `device` (`cuda` unless `"cpu"` is asked for, as every entry
+    point), in `dtype` (default: f32, as the JAX params are)."""
+    device = resolve_device(device)
     out: Dict[str, Any] = {k: _tensor(v, device, dtype)
                            for k, v in tree.items() if k != "blocks"}
     out["blocks"] = [{k: _tensor(v, device, dtype) for k, v in blk.items()}

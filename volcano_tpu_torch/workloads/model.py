@@ -7,10 +7,14 @@ at use.  Attention goes through the flash kernel
 (`ops.flash_attention`) when `cfg.use_flash_attention`, else through the
 eager `local_causal_attention`.
 
+`cfg.remat` runs each block under `torch.utils.checkpoint` (the
+counterpart of `jax.checkpoint` with the nothing-saveable policy) when
+gradients are being recorded; without them it changes nothing.
+`next_token_loss` and `loss_fn` are the training objective.
+
 Not yet ported: mixture-of-experts blocks (`n_experts > 0` raises
-NotImplementedError), the sharded mesh paths (ring and Ulysses flags do
-nothing without a mesh, as in the reference with mesh=None), and remat,
-which changes no value in inference.
+NotImplementedError) and the sharded mesh paths (ring and Ulysses flags
+do nothing without a mesh, as in the reference with mesh=None).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import Any, Dict
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from volcano_tpu_torch.workloads.ops.flash_attention import flash_attention
 from volcano_tpu_torch.workloads.ring_attention import local_causal_attention
@@ -180,7 +185,12 @@ def forward_with_aux(params, tokens, cfg: ModelConfig, mesh=None):
     positions = torch.arange(t, device=tokens.device)[None, :].expand(b, t)
     aux_total = torch.zeros((), device=x.device)
     for blk in params["blocks"]:
-        x, aux = _block(x, blk, cfg, positions)
+        if cfg.remat and torch.is_grad_enabled():
+            # keep only the block's inputs; recompute it in the backward
+            x, aux = checkpoint(_block, x, blk, cfg, positions,
+                                use_reentrant=False)
+        else:
+            x, aux = _block(x, blk, cfg, positions)
         aux_total = aux_total + aux
     x = _rms_norm(x, params["final_norm"])
     # logits stay in the model dtype, as in the reference
@@ -190,6 +200,29 @@ def forward_with_aux(params, tokens, cfg: ModelConfig, mesh=None):
 def forward(params, tokens, cfg: ModelConfig, mesh=None) -> torch.Tensor:
     """tokens [b, t] -> logits [b, t, vocab]."""
     return forward_with_aux(params, tokens, cfg, mesh)[0]
+
+
+def next_token_loss(logits, tokens) -> torch.Tensor:
+    """Shared next-token CE: logits [b, t, V], tokens [b, t] -> scalar.
+    The last position predicts the rolled-around token and is masked,
+    so the mean is over b * (t - 1) positions.  logsumexp minus the
+    picked logit, upcast to f32 inside the reduction only: the logits
+    stay in the model dtype."""
+    targets = torch.roll(tokens, -1, dims=1).long()
+    lse = torch.logsumexp(logits.float(), dim=-1)                # [b, t]
+    picked = torch.gather(logits, -1, targets[..., None])[..., 0].float()
+    nll = lse - picked
+    mask = torch.ones_like(nll)
+    mask[:, -1] = 0.0
+    return (nll * mask).sum() / mask.sum()
+
+
+def loss_fn(params, batch, cfg: ModelConfig, mesh=None) -> torch.Tensor:
+    """Next-token cross entropy (+ MoE load-balancing aux, 0 for the
+    dense models ported so far); batch: {"tokens": [b, t]}."""
+    tokens = batch["tokens"]
+    logits, moe_aux = forward_with_aux(params, tokens, cfg, mesh)
+    return next_token_loss(logits, tokens) + cfg.moe_aux_weight * moe_aux
 
 
 class DecoderLM(nn.Module):

@@ -1,20 +1,19 @@
-"""Flash attention forward — the port of
-`volcano_tpu.workloads.ops.flash_attention`.
+"""Flash attention — the port of `volcano_tpu.workloads.ops.flash_attention`.
 
 `flash_attention(q, k, v)` keeps the reference's [b, t, h, d] signature
 and its dispatch: shapes that `supported()` rejects go to `_reference`
-(decided by shape, never by an exception); the others go to
-`flash_fwd`, which launches the hand-written CUDA kernel
-(`volcano_tpu_torch/csrc/flash_fwd.cu`) on a CUDA tensor and runs its
-plain PyTorch version, `flash_fwd_plain`, on a CPU tensor.  There is no
-fallback from the kernel: a CUDA tensor the kernel does not take, a
-failed build or a failed launch raises.
+(decided by shape, never by an exception) and are differentiated by
+autograd; the others go through `_FlashAttention`, the counterpart of
+the reference's custom VJP.  Its forward is `flash_fwd` and its backward
+`flash_bwd`.  On a CUDA tensor these launch the hand-written kernels
+(`volcano_tpu_torch/csrc/flash_fwd.cu`, `flash_bwd.cu`); on a CPU tensor
+they run their plain PyTorch versions, `flash_fwd_plain` and
+`flash_bwd_plain`.  There is no fallback from a kernel: a CUDA tensor
+the kernel does not take, a failed build or a failed launch raises.
 
 The block sizes (and the FLASH_BLOCK / FLASH_BLOCK_BWD overrides) decide
-the dispatch exactly as in the reference; the CUDA kernel tiles by its
-own 64-row q and k tiles, which divide every supported t.
-
-Forward only: the backward kernels come with the training slice.
+the dispatch exactly as in the reference; the CUDA kernels tile by their
+own 32- and 64-row tiles, which divide every supported t.
 """
 
 from __future__ import annotations
@@ -102,75 +101,128 @@ def flash_fwd_plain(q, k, v, causal: bool = True):
     return out, lse
 
 
+def flash_bwd_plain(q, k, v, out, lse, do, causal: bool = True):
+    """The backward kernels' function in plain PyTorch: q/k/v/out/do
+    [b, t, h, d], lse [b, h, t] f32 as `flash_fwd` writes it ->
+    (dq, dk, dv) [b, t, h, d] in q's dtype.
+
+    The arithmetic of the reference's `_flash_bh_bwd` and its two
+    kernels in f32, in one pass instead of blockwise: Delta =
+    rowsum(dO * O), P = exp(S - lse) with masked p exactly 0,
+    dP = dO V^T, dS = P * (dP - Delta), dQ = scale dS K,
+    dK = scale dS^T Q and dV = P^T dO."""
+    d = q.shape[-1]
+    qf, kf, vf, of, dof = (x.float().transpose(1, 2)
+                           for x in (q, k, v, out, do))     # b,h,t,d
+    scale = torch.rsqrt(torch.tensor(float(d), device=q.device))
+    delta = (dof * of).sum(dim=-1, keepdim=True)
+    s = (qf @ kf.transpose(-1, -2)) * scale
+    if causal:
+        t = q.shape[1]
+        mask = torch.tril(torch.ones((t, t), dtype=torch.bool,
+                                     device=q.device))
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    p = torch.where(s <= NEG_INF / 2, 0.0, p)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta)
+    dq = (ds @ kf) * scale
+    dk = (ds.transpose(-1, -2) @ qf) * scale
+    dv = p.transpose(-1, -2) @ dof
+    return tuple(x.transpose(1, 2).to(q.dtype) for x in (dq, dk, dv))
+
+
 def _kernel_lib():
     from volcano_tpu_torch.workloads.ops import _build
     lib = _build.load_library()
-    if not getattr(lib, "_vtp_flash_fwd_bound", False):
+    if not getattr(lib, "_vtp_bound", False):
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.vtp_flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i] + \
             [i64] * 9 + [p]
-        lib.vtp_flash_fwd.restype = i
+        lib.vtp_flash_bwd_dq.argtypes = [p] * 7 + [i] * 6 + [p, p]
+        lib.vtp_flash_bwd_dkv.argtypes = [p] * 8 + [i] * 6 + [p, p]
+        for fn in (lib.vtp_flash_fwd, lib.vtp_flash_bwd_dq,
+                   lib.vtp_flash_bwd_dkv):
+            fn.restype = i
         lib.vtp_error_string.argtypes = [i]
         lib.vtp_error_string.restype = ctypes.c_char_p
-        lib._vtp_flash_fwd_bound = True
+        lib._vtp_bound = True
     return lib
 
 
-def _check_kernel_inputs(q, k, v) -> None:
-    for name, x in (("q", q), ("k", k), ("v", v)):
+def _check_kernel_inputs(kernel: str, **xs) -> None:
+    """Raise unless the [b, t, h, d] tensors `xs` (the first one sets
+    device, dtype and shape) are what the CUDA kernels take."""
+    names = ", ".join(xs)
+    first = next(iter(xs.values()))
+    for name, x in xs.items():
         if x.device.type != "cuda":
-            raise ValueError(f"flash_fwd kernel: {name} lies on {x.device}, "
+            raise ValueError(f"{kernel} kernel: {name} lies on {x.device}, "
                              "not on a CUDA device")
-        if x.device != q.device:
-            raise ValueError("flash_fwd kernel: q, k and v lie on "
-                             "different devices")
-        if x.dtype != q.dtype or x.dtype not in _DTYPE_CODES:
-            raise ValueError(f"flash_fwd kernel: dtypes {q.dtype}, "
-                             f"{k.dtype}, {v.dtype}; needs all float32 or "
-                             "all bfloat16")
-        if x.dim() != 4 or x.shape != q.shape:
-            raise ValueError("flash_fwd kernel: q, k, v must share one "
-                             f"[b, t, h, d] shape; got {tuple(q.shape)}, "
-                             f"{tuple(k.shape)}, {tuple(v.shape)}")
+        if x.device != first.device:
+            raise ValueError(f"{kernel} kernel: {names} lie on different "
+                             "devices")
+        if x.dtype != first.dtype or x.dtype not in _DTYPE_CODES:
+            raise ValueError(f"{kernel} kernel: dtypes "
+                             f"{[str(y.dtype) for y in xs.values()]}; "
+                             "needs all float32 or all bfloat16")
+        if x.dim() != 4 or x.shape != first.shape:
+            raise ValueError(f"{kernel} kernel: {names} must share one "
+                             "[b, t, h, d] shape; got "
+                             f"{[tuple(y.shape) for y in xs.values()]}")
         align = 16 // x.element_size()
         if x.stride(3) != 1 or any(s % align for s in x.stride()[:3]) \
                 or x.data_ptr() % 16:
             raise ValueError(
-                f"flash_fwd kernel: {name} needs a unit stride over d, the "
+                f"{kernel} kernel: {name} needs a unit stride over d, the "
                 f"other strides a multiple of {align} elements and a "
                 f"16-byte aligned start; got strides {x.stride()}")
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        raise NotImplementedError(
-            "flash_fwd kernel: the backward kernels are not ported yet; "
-            "call it under torch.no_grad() or torch.inference_mode()")
-    _, t, _, d = q.shape
+    _, t, _, d = first.shape
     if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_fwd kernel: head dim {d} not in "
+        raise ValueError(f"{kernel} kernel: head dim {d} not in "
                          f"{KERNEL_HEAD_DIMS}")
     if t % KERNEL_SEQ_MULTIPLE:
-        raise ValueError(f"flash_fwd kernel: t={t} is not a multiple of "
+        raise ValueError(f"{kernel} kernel: t={t} is not a multiple of "
                          f"{KERNEL_SEQ_MULTIPLE}")
 
 
+def _check_rows(kernel: str, ref, **xs) -> None:
+    """lse and Delta: f32 [b, h, t] contiguous, on ref's device."""
+    b, t, h, _ = ref.shape
+    for name, x in xs.items():
+        if x.dtype != torch.float32 or tuple(x.shape) != (b, h, t) or \
+                not x.is_contiguous() or x.device != ref.device:
+            raise ValueError(
+                f"{kernel} kernel: {name} must be a contiguous float32 "
+                f"[{b}, {h}, {t}] tensor on {ref.device}; got "
+                f"{x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def _raise_on(lib, rc: int, kernel: str) -> None:
+    if rc != 0:
+        raise RuntimeError(
+            f"{kernel} kernel launch failed: CUDA error {rc} "
+            f"({lib.vtp_error_string(rc).decode()})")
+
+
+def _stream(x) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
 def _launch(q, k, v, causal: bool):
-    """Launch the CUDA kernel on PyTorch's current stream; raises on
+    """Launch the forward kernel on PyTorch's current stream; raises on
     anything the kernel does not take, on a failed build and on a
     failed launch."""
-    _check_kernel_inputs(q, k, v)
+    _check_kernel_inputs("flash_fwd", q=q, k=k, v=v)
     b, t, h, d = q.shape
     lib = _kernel_lib()
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.vtp_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, t, h, d, _DTYPE_CODES[q.dtype], int(causal),
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"flash_fwd kernel launch failed: CUDA error {rc} "
-            f"({lib.vtp_error_string(rc).decode()})")
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], _stream(q))
+    _raise_on(lib, rc, "flash_fwd")
     flash_fwd.launches += 1
     return out, lse
 
@@ -187,15 +239,101 @@ def flash_fwd(q, k, v, causal: bool = True):
 flash_fwd.launches = 0
 
 
+def _bwd_args(q, k, v, do, lse, delta, causal: bool):
+    """The arguments both backward kernels share, after their checks."""
+    _check_kernel_inputs("flash_bwd", q=q, k=k, v=v, do=do)
+    _check_rows("flash_bwd", q, lse=lse, delta=delta)
+    b, t, h, d = q.shape
+    strides = (ctypes.c_longlong * 12)(
+        *(s for x in (q, k, v, do) for s in x.stride()[:3]))
+    return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr()),
+            (b, t, h, d, _DTYPE_CODES[q.dtype], int(causal)), strides)
+
+
+def _launch_dq(q, k, v, do, lse, delta, causal: bool):
+    """Launch the dQ kernel on PyTorch's current stream -> dq; raises as
+    `_launch` does."""
+    ins, dims, strides = _bwd_args(q, k, v, do, lse, delta, causal)
+    lib = _kernel_lib()
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = lib.vtp_flash_bwd_dq(*ins, dq.data_ptr(), *dims, strides,
+                                  _stream(q))
+    _raise_on(lib, rc, "flash_bwd_dq")
+    flash_bwd.launches_dq += 1
+    return dq
+
+
+def _launch_dkv(q, k, v, do, lse, delta, causal: bool):
+    """Launch the dK/dV kernel on PyTorch's current stream -> (dk, dv);
+    raises as `_launch` does."""
+    ins, dims, strides = _bwd_args(q, k, v, do, lse, delta, causal)
+    lib = _kernel_lib()
+    dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = lib.vtp_flash_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(),
+                                   *dims, strides, _stream(q))
+    _raise_on(lib, rc, "flash_bwd_dkv")
+    flash_bwd.launches_dkv += 1
+    return dk, dv
+
+
+def bwd_delta(out, do):
+    """Delta = rowsum(dO * O) in f32 as [b, h, t] contiguous: the
+    reference's jnp glue (`_flash_bh_bwd`), a torch op here too."""
+    return (do.float() * out.float()).sum(dim=-1).transpose(1, 2) \
+        .contiguous()
+
+
+def flash_bwd(q, k, v, out, lse, do, causal: bool = True):
+    """-> (dq, dk, dv) [b, t, h, d] in q's dtype: on a CUDA tensor Delta
+    as a torch op, then the dQ kernel and the dK/dV kernel; on a CPU
+    tensor `flash_bwd_plain`.  `flash_bwd.launches_dq` and
+    `flash_bwd.launches_dkv` count kernel launches."""
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, out, lse, do, causal)
+    delta = bwd_delta(out, do)
+    dq = _launch_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = _launch_dkv(q, k, v, do, lse, delta, causal)
+    return dq, dk, dv
+
+
+flash_bwd.launches_dq = 0
+flash_bwd.launches_dkv = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The counterpart of the reference's `_flash` custom VJP: forward
+    `flash_fwd`, saving q, k, v, out and lse; backward `flash_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = flash_fwd(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, out, lse, do.contiguous(),
+                               ctx.causal)
+        return dq, dk, dv, None
+
+
 def flash_attention(q, k, v, causal: bool = True,
                     block_q: Optional[int] = None,
                     block_k: Optional[int] = None,
                     block_q_bwd: Optional[int] = None,
                     block_k_bwd: Optional[int] = None):
-    """Flash attention; q/k/v: [b, t, h, d] -> [b, t, h, d].  Block
-    sizes default to the largest power-of-two divisor of t up to 512
-    (see default_block), with the FLASH_BLOCK / FLASH_BLOCK_BWD env
-    overrides, and decide whether the kernel path is taken."""
+    """Flash attention; q/k/v: [b, t, h, d] -> [b, t, h, d].
+    Differentiable (`_FlashAttention`).  Block sizes default to the
+    largest power-of-two divisor of t up to 512 (see default_block),
+    with the FLASH_BLOCK / FLASH_BLOCK_BWD env overrides, and decide
+    whether the kernel path is taken."""
     b, t, h, d = q.shape
     if block_q is None:
         block_q = _env_block("FLASH_BLOCK", t, default_block(t))
@@ -209,4 +347,4 @@ def flash_attention(q, k, v, causal: bool = True,
             not supported(t, d, block_q_bwd, block_k_bwd):
         # fallback honors the causal flag (the reference expression)
         return _reference(q, k, v, causal)
-    return flash_fwd(q, k, v, causal)[0]
+    return _FlashAttention.apply(q, k, v, causal)

@@ -30,6 +30,7 @@ from __future__ import annotations
 import importlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -83,8 +84,14 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def rand_qkv(shape, dtype, seed):
+def rand_qkv(shape, dtype, seed, fused=False):
+    """Three [b, t, h, d] tensors; with `fused`, strided views of one
+    [b, t, 3, h, d] tensor, as a fused qkv projection gives them."""
     g = torch.Generator(device="cuda").manual_seed(seed)
+    if fused:
+        b, t, h, d = shape
+        x = torch.randn((b, t, 3, h, d), generator=g, device="cuda")
+        return list(x.to(dtype).unbind(2))
     return [torch.randn(shape, generator=g, device="cuda").to(dtype)
             for _ in range(3)]
 
@@ -104,26 +111,65 @@ def phase_device():
     return name, smi
 
 
+def ptxas_report(text):
+    """{(kernel, head dim): (registers, spill store bytes)} of the bf16
+    kernels, from ptxas' -v output in the build log."""
+    report, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        k = re.search(r"(flash_fwd|flash_bwd_dq|flash_bwd_dkv)_bf16_kernel"
+                      r"ILi(\d+)E", name or "")
+        if not k:
+            continue
+        key = (k.group(1), int(k.group(2)))
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            report[key] = (None, int(m.group(1)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[key] = (int(m.group(1)), report.get(key, (0, 0))[1])
+    return report
+
+
 def phase_build(build):
     t0 = time.monotonic()
     build.load_library()
     log(f"[build] kernels built and loaded in {time.monotonic() - t0:.1f} s "
         f"({build.build_dir()})")
-    for line in build.build_log().splitlines():
+    text = build.build_log()
+    for line in text.splitlines():
         if any(k in line for k in ("entry function", "registers", "spill",
-                                   "error")):
+                                   "error", "Performance Loss")):
             log(f"[build] {line.strip()}")
+    report = ptxas_report(text)
+    for (kern, d), (regs, spill) in sorted(report.items()):
+        log(f"[build] {kern} bf16 d={d}: {regs} registers at entry, "
+            f"{spill} bytes spilled")
+    return report
 
 
 def kernel_cases():
+    """(shape, dtype, causal, fused): fused cases take q/k/v (and dO) as
+    strided views of one [b, t, 3, h, d] tensor, so the kernels' TMA
+    tensor maps meet non-contiguous strides."""
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         for causal in (True, False):
             for shape in ((2, 256, 2, 128), (1, 384, 4, 128),
                           (1, 256, 2, 256)):
-                cases.append((shape, dtype, causal))
-    cases.append((SLICE_SHAPE, torch.bfloat16, True))
+                cases.append((shape, dtype, causal, False))
+    cases.append(((2, 256, 2, 128), torch.bfloat16, True, True))
+    cases.append(((1, 256, 2, 256), torch.bfloat16, False, True))
+    cases.append((SLICE_SHAPE, torch.bfloat16, True, False))
     return cases
+
+
+def case_tag(shape, dtype, causal, fused):
+    return (f"{list(shape)} {str(dtype)[6:]} causal={causal}"
+            + (" fused-qkv views" if fused else ""))
 
 
 def bound(flops, nbytes, flop_peak, byte_peak):
@@ -135,14 +181,14 @@ def phase_kernel_vs_plain(fa):
     """Kernel against its plain version for out and lse; returns the
     max out error at the serving shape."""
     slice_err = None
-    for i, (shape, dtype, causal) in enumerate(kernel_cases()):
-        q, k, v = rand_qkv(shape, dtype, seed=100 + i)
+    for i, (shape, dtype, causal, fused) in enumerate(kernel_cases()):
+        q, k, v = rand_qkv(shape, dtype, seed=100 + i, fused=fused)
         out, lse = fa._launch(q, k, v, causal)
         torch.cuda.synchronize()
         ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, causal)
         err = (out.float() - ref_out.float()).abs().max().item()
         lse_err = (lse - ref_lse).abs().max().item()
-        tag = f"{list(shape)} {str(dtype)[6:]} causal={causal}"
+        tag = case_tag(shape, dtype, causal, fused)
         log(f"[kernel] {tag}: max|out err| {err:.3e}, "
             f"max|lse err| {lse_err:.3e}")
         if dtype == torch.float32:
@@ -154,7 +200,7 @@ def phase_kernel_vs_plain(fa):
         torch.testing.assert_close(lse, ref_lse, atol=ATOL_F32, rtol=0.0)
         if not torch.isfinite(out.float()).all():
             raise AssertionError(f"non-finite kernel output at {tag}")
-        if shape == SLICE_SHAPE:
+        if shape == SLICE_SHAPE and not fused:
             slice_err = err
         del q, k, v, out, lse, ref_out, ref_lse
     torch.cuda.empty_cache()
@@ -220,9 +266,11 @@ def phase_bwd_vs_plain(fa):
     dv, on the forward kernel's out and lse; returns the largest error
     of each kernel at the training shape."""
     slice_err = None
-    for i, (shape, dtype, causal) in enumerate(kernel_cases()):
-        q, k, v = rand_qkv(shape, dtype, seed=200 + i)
-        do = rand_qkv(shape, dtype, seed=300 + i)[0]
+    for i, (shape, dtype, causal, fused) in enumerate(kernel_cases()):
+        q, k, v = rand_qkv(shape, dtype, seed=200 + i, fused=fused)
+        # the middle one: in a fused case a view that starts inside its
+        # tensor, so the TMA base is offset too
+        do = rand_qkv(shape, dtype, seed=300 + i, fused=fused)[1]
         out, lse = fa._launch(q, k, v, causal)
         delta = fa.bwd_delta(out, do)
         dq = fa._launch_dq(q, k, v, do, lse, delta, causal)
@@ -231,7 +279,7 @@ def phase_bwd_vs_plain(fa):
         ref = fa.flash_bwd_plain(q, k, v, out, lse, do, causal)
         errs = [(x.float() - r.float()).abs().max().item()
                 for x, r in zip((dq, dk, dv), ref)]
-        tag = f"{list(shape)} {str(dtype)[6:]} causal={causal}"
+        tag = case_tag(shape, dtype, causal, fused)
         big = max(r.float().abs().max().item() for r in ref)
         log(f"[bwd kernel] {tag}: max|err| dq {errs[0]:.3e}, dk "
             f"{errs[1]:.3e}, dv {errs[2]:.3e} (max|grad| {big:.3e})")
@@ -243,7 +291,7 @@ def phase_bwd_vs_plain(fa):
             else:
                 torch.testing.assert_close(x.float(), r.float(),
                                            atol=TOL_BF16, rtol=TOL_BF16)
-        if shape == SLICE_SHAPE:
+        if shape == SLICE_SHAPE and not fused:
             slice_err = {"dq": errs[0], "dkv": max(errs[1:])}
         del q, k, v, do, out, lse, delta, dq, dk, dv, ref
     torch.cuda.empty_cache()
@@ -630,7 +678,7 @@ def main() -> int:
     peak_key, (flop_peak, byte_peak) = peaks(name)
     log(f"[device] roofline peaks of {peak_key}: {flop_peak / 1e12:.0f} "
         f"TFLOP/s bf16, {byte_peak / 1e12:.2f} TB/s")
-    phase_build(_build)
+    ptxas = phase_build(_build)
     fwd_err = phase_kernel_vs_plain(fa)
     timing = phase_timing(fa, flop_peak, byte_peak)
     bwd_err = phase_bwd_vs_plain(fa)
@@ -644,14 +692,14 @@ def main() -> int:
               "causal": True, "card": smi}
     src = "volcano_tpu/workloads/ops/flash_attention.py"
     kernels = [
-        {"name": "flash_fwd", "route": "cuda",
+        {"name": "flash_fwd", "route": "cuda", "design": "wgmma+tma",
          "source": "volcano_tpu_torch/csrc/flash_fwd.cu",
          "replaces": f"{src}:27", "launches": tr["launches"]["flash_fwd"],
          "launches_serving": sl["launches"], "max_abs_err": fwd_err,
          "ms": timing["ms"], "plain_ms": timing["plain_ms"],
          "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
          "library_ms": timing["library_ms"], **common},
-        {"name": "flash_bwd_dq", "route": "cuda",
+        {"name": "flash_bwd_dq", "route": "cuda", "design": "mma.sync",
          "source": "volcano_tpu_torch/csrc/flash_bwd.cu",
          "replaces": f"{src}:102",
          "launches": tr["launches"]["flash_bwd_dq"],
@@ -659,7 +707,7 @@ def main() -> int:
          "plain_ms": bwd["plain_ms"], "bound_ms": bwd["dq"]["bound_ms"],
          "bound_by": bwd["dq"]["bound_by"],
          "library_ms": bwd["library_ms"], **common},
-        {"name": "flash_bwd_dkv", "route": "cuda",
+        {"name": "flash_bwd_dkv", "route": "cuda", "design": "wgmma+tma",
          "source": "volcano_tpu_torch/csrc/flash_bwd.cu",
          "replaces": f"{src}:144",
          "launches": tr["launches"]["flash_bwd_dkv"],
@@ -667,6 +715,14 @@ def main() -> int:
          "plain_ms": bwd["plain_ms"], "bound_ms": bwd["dkv"]["bound_ms"],
          "bound_by": bwd["dkv"]["bound_by"],
          "library_ms": bwd["library_ms"], **common}]
+    for kern in kernels:
+        # the kernel's time over the PyTorch call's (for dQ and dK/dV each
+        # alone against SDPA's whole backward)
+        kern["ratio_to_library"] = kern["ms"] / kern["library_ms"]
+        # ptxas at the slice's head dim: registers at kernel entry (the
+        # warp-specialised kernels' consumers then take 232 by setmaxnreg)
+        regs, spill = ptxas.get((kern["name"], SLICE_SHAPE[3]), (None, None))
+        kern["registers_at_entry"], kern["spill_bytes"] = regs, spill
     log(f"[slice] forward ms (median of steady forwards) "
         f"{sl['forward_ms']:.3f}")
     log(f"[train] step ms (median of steady steps) {tr['step_ms']:.3f}, "

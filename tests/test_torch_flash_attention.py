@@ -119,3 +119,89 @@ def test_cuda_launcher_refuses_cpu_tensors():
     q, k, v = _torch(*_qkv(t=128, seed=11))
     with pytest.raises(ValueError, match="not on a CUDA device"):
         tfa._launch(q, k, v, True)
+
+
+def test_kernels_take_every_default_dispatched_shape():
+    """Every t in 128..8192 and head dim that the dispatch sends to
+    `_FlashAttention` at the default blocks is one the CUDA kernels take,
+    so a raised KERNEL_SEQ_MULTIPLE never turns a default shape into a
+    refused launch."""
+    taken = 0
+    for t in range(128, 8192 + 1, 128):
+        blk = tfa.default_block(t)
+        for d in (128, 256):
+            if tfa.supported(t, d, blk, blk):
+                assert t % tfa.KERNEL_SEQ_MULTIPLE == 0, (t, d)
+                assert d in tfa.KERNEL_HEAD_DIMS, (t, d)
+                taken += 1
+    assert taken == 2 * 64
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_d256_fwd_and_bwd_match_jax_interpret(causal):
+    """flash_fwd and flash_bwd at d = 256 on CPU tensors: the plain
+    versions, no launch, against `_flash_bh` and `_flash_bh_bwd` in
+    interpret mode."""
+    b, t, h, d = 1, 128, 2, 256
+    rng = np.random.default_rng(13)
+    q, k, v, do = (rng.standard_normal((b, t, h, d)).astype(np.float32)
+                   for _ in range(4))
+
+    def bh(x):
+        return jnp.asarray(x).transpose(0, 2, 1, 3).reshape(b * h, t, d)
+
+    counts = (tfa.flash_fwd.launches, tfa.flash_bwd.launches_dq,
+              tfa.flash_bwd.launches_dkv)
+    out, lse = tfa.flash_fwd(*_torch(q, k, v), causal)
+    grads = tfa.flash_bwd(*_torch(q, k, v), out, lse, torch.from_numpy(do),
+                          causal)
+    assert (tfa.flash_fwd.launches, tfa.flash_bwd.launches_dq,
+            tfa.flash_bwd.launches_dkv) == counts
+    ref_out, ref_lse = jfa._flash_bh(bh(q), bh(k), bh(v), block_q=128,
+                                     block_k=128, causal=causal,
+                                     interpret=True)
+    ref = jfa._flash_bh_bwd(bh(q), bh(k), bh(v), ref_out, ref_lse, bh(do),
+                            block_q=128, block_k=128, causal=causal,
+                            interpret=True)
+    np.testing.assert_allclose(out.numpy(),
+                               np.asarray(jfa._from_bh(ref_out, b, h)),
+                               atol=ATOL, rtol=ATOL)
+    np.testing.assert_allclose(lse.reshape(b * h, t).numpy(),
+                               np.asarray(ref_lse)[..., 0], atol=ATOL,
+                               rtol=ATOL)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
+        np.testing.assert_allclose(got.numpy(),
+                                   np.asarray(jfa._from_bh(want, b, h)),
+                                   atol=ATOL, rtol=ATOL, err_msg=name)
+
+
+def test_fused_qkv_views_match_contiguous():
+    """q/k/v (and dO) as strided views of one fused [b, t, 3, h, d]
+    tensor, the layout whose strides the kernels' TMA maps are held
+    against on the GPU, give what contiguous copies give."""
+    rng = np.random.default_rng(17)
+    fused = torch.from_numpy(
+        rng.standard_normal((2, 128, 3, 2, 128)).astype(np.float32))
+    q, k, v = fused.unbind(2)
+    assert not q.is_contiguous() and q.stride(1) == 3 * 2 * 128
+    do = torch.from_numpy(
+        rng.standard_normal((2, 128, 3, 2, 128)).astype(np.float32))[:, :, 1]
+    out, lse = tfa.flash_fwd(q, k, v)
+    want_out, want_lse = tfa.flash_fwd(*(x.contiguous() for x in (q, k, v)))
+    torch.testing.assert_close(out, want_out, atol=0, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=0, rtol=0)
+    got = tfa.flash_bwd(q, k, v, out, lse, do)
+    want = tfa.flash_bwd(*(x.contiguous() for x in (q, k, v)), out, lse,
+                         do.contiguous())
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def test_rows_check_refuses_unaligned_start():
+    """lse and Delta reach the kernels by TMA, which needs a 16-byte
+    aligned start: a view one float in is refused before any launch."""
+    q = torch.zeros((1, 128, 2, 128))
+    rows = torch.zeros(1 * 2 * 128 + 1)
+    tfa._check_rows("flash_bwd", q, lse=rows[:-1].view(1, 2, 128))
+    with pytest.raises(ValueError, match="16-byte aligned start"):
+        tfa._check_rows("flash_bwd", q, lse=rows[1:].view(1, 2, 128))

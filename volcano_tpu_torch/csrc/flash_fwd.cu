@@ -9,35 +9,50 @@
 // running max m, running sum l, out = acc / (l == 0 ? 1 : l) in the input
 // dtype, and lse = m + log l (f32) for the backward kernels.
 //
-// What bounds it: at the serving shape (b*h = 128, t = 2048, d = 128,
-// bf16, causal) the work is 4*b*h*d*t(t+1)/2 = 1.4e11 FLOP against
-// 4 * 67 MB of q/k/v/out, about 510 FLOP per byte, above the H100's
-// ~295 FLOP/byte ridge: it is bound by the tensor cores' operations.
+// What bounds it on an H100: at the serving shape (b*h = 128, t = 2048,
+// d = 128, bf16, causal) the work is 4*b*h*d*t(t+1)/2 = 1.4e11 FLOP
+// against 4 * 67 MB of q/k/v/out, about 510 FLOP per byte, above the
+// card's ~295 FLOP/byte ridge: the tensor cores' rate bounds it, 0.139 ms
+// at 989 TFLOP/s.
 //
-// What the design does about it:
-//  * The TPU kernel keeps a head's whole K/V row in VMEM. Hopper has at
-//    most 227 KB of shared memory a block, so here one block of 4 warps
-//    owns 64 q rows of one (batch, head) and streams 64-row K/V tiles
-//    through shared memory; the TPU's sequential grid dimension becomes
-//    the k-tile loop inside the block. Causal k tiles past the diagonal
-//    are skipped, and the heaviest q tiles are launched first.
-//  * bf16: the two products run on the tensor cores (mma.sync m16n8k16,
-//    f32 accumulation). QK^T of bf16 values is exact in f32, so S is the
-//    f32 product of the upcast inputs up to summation order. P is f32;
-//    it enters PV as a two-term bf16 split (P = hi + lo), which keeps 16
-//    of f32's 24 significant bits (relative error <= 2^-17, 1/256 of the
-//    bf16 rounding of out) at the cost of a second PV product.
+// Design of the bf16 path (wgmma + TMA, warp-specialised):
+//  * One block of 384 threads owns 128 q rows of one (batch, head): two
+//    consumer warpgroups of 64 rows each and one producer warpgroup, of
+//    which one thread issues every load. The producer gives its registers
+//    to the consumers (setmaxnreg: 40 against 232).
+//  * TMA brings Q in once and streams K/V tiles through a ring of
+//    stages, each guarded by a full and an empty mbarrier; tiles are
+//    128-byte swizzled 64-column panels read by stride from [b, t, h, d]
+//    (hopper_common.cuh). K/V tiles are 128 rows at d = 128 and 64 at
+//    d = 256, where the O accumulator alone takes 128 registers a thread
+//    (shared memory: 160 and 192 KB a block).
+//  * S = Q K^T is a wgmma with both operands in shared memory (K-major).
+//    The online softmax runs on the accumulator fragments, in the log2
+//    domain (ex2.approx with scale * log2(e) folded in), masked by the
+//    wgmma accumulator layout.
+//  * O += P V is a wgmma with A = P in registers, converted from the S
+//    accumulator without a trip through shared memory, and B = V from
+//    shared memory with the transpose bit (no gathers of V).
+//  * Causal k tiles past the diagonal are neither loaded nor computed (a
+//    consumer skips a tile wholly above its own rows), and the heaviest q
+//    tiles are launched first.
+//  * What it gives up: P keeps its two-term bf16 split (P = hi + lo, 16
+//    of f32's 24 significant bits) so bf16 out stays within one rounding
+//    step of the f32 plain version at every case; the lo term costs a
+//    second P V product, 1.5x the needed tensor work. The two consumer
+//    warpgroups are not scheduled in ping-pong, and a warpgroup's softmax
+//    does not overlap its own products. out is written from registers,
+//    not through shared memory and a TMA store.
 //  * f32: CUDA-core FMAs in full f32 (a tensor-core path would need TF32,
-//    whose 10-bit mantissa misses the f32 tolerance). 32-row tiles.
-//  * q/k/v are read in their [b, t, h, d] layout through the strides the
-//    caller passes, so no transposes; out is written [b, t, h, d]
-//    contiguous and lse [b, h, t] f32.
-// Simple first: no TMA, no wgmma, no pipelining of the tile loads.
+//    whose 10-bit mantissa misses the f32 tolerance), 32-row tiles, plain
+//    loads; only the parity checks use it.
+//  * out is written [b, t, h, d] contiguous and lse [b, h, t] f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper_common.cuh"
 #include "mma_common.cuh"
 
 namespace {
@@ -56,168 +71,235 @@ struct FwdParams {
 };
 
 // ---------------------------------------------------------------- bf16
-// One block: 4 warps, 64 q rows (16 a warp). mma fragment layout
-// (PTX m16n8k16): lane = 4*g + c; a thread holds rows g and g+8 of its
-// warp's 16 rows, and columns 2c, 2c+1 (+8) of each 8-wide n tile.
-constexpr int kMmaRows = 64;
-constexpr int kMmaThreads = 128;
+// 384 threads: warpgroups 0 and 1 consume (q rows [64w, 64w + 64) of the
+// block's 128), warpgroup 2 produces.
+constexpr int kFwdRows = 128;
+constexpr int kFwdThreads = 384;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
-constexpr int mma_smem_bytes() {
-  return 3 * kMmaRows * (D + 8) * 2;  // Q, K, V tiles, rows padded by 8
+struct FwdTile {
+  static constexpr int BK = D == 128 ? 128 : 64;  // k rows of a stage
+  static constexpr int NS = 2;                    // stages of the ring
+  static constexpr int Q_BYTES = kFwdRows * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;     // K or V of one stage
+  static constexpr int BAR_OFF = Q_BYTES + 2 * NS * KV_BYTES;
+  // 1 KB of slack for the 1024-byte alignment, then the barriers
+  static constexpr int SMEM = 1024 + BAR_OFF + (1 + 2 * NS) * 8;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const FwdParams p) {
+  using Tile = FwdTile<D>;
+  constexpr int BK = Tile::BK, NS = Tile::NS, NP = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = smem_align1k(smem_raw);
+  unsigned char* Ks = Qs + Tile::Q_BYTES;          // stage s: + s * KV_BYTES
+  unsigned char* Vs = Ks + NS * Tile::KV_BYTES;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Qs + Tile::BAR_OFF);
+  uint64_t* full = q_full + 1;     // [NS]: K and V of the stage landed
+  uint64_t* empty = full + NS;     // [NS]: both consumers are done with it
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int bh = blockIdx.y, bi = bh / p.H, hi = bh % p.H;
+  const int q0 = qt * kFwdRows;
+  const int n_kt = p.causal ? (q0 + kFwdRows) / BK : p.T / BK;
+  const int wg = warpgroup_idx();
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ------------------------------------------------------- producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      mbar_arrive_expect_tx(q_full, Tile::Q_BYTES);
+      for (int pn = 0; pn < NP; ++pn)
+        tma_load_4d(Qs + pn * kFwdRows * 128, &tm_q, q_full, 64 * pn, hi, q0,
+                    bi);
+      Ring<NS> ring;
+      for (int kt = 0; kt < n_kt; ++kt, ring.advance()) {
+        mbar_wait(&empty[ring.stage], ring.parity() ^ 1u);
+        uint64_t* bar = &full[ring.stage];
+        mbar_arrive_expect_tx(bar, 2 * Tile::KV_BYTES);
+        unsigned char* ks = Ks + ring.stage * Tile::KV_BYTES;
+        unsigned char* vs = Vs + ring.stage * Tile::KV_BYTES;
+        for (int pn = 0; pn < NP; ++pn) {
+          tma_load_4d(ks + pn * BK * 128, &tm_k, bar, 64 * pn, hi, kt * BK,
+                      bi);
+          tma_load_4d(vs + pn * BK * 128, &tm_v, bar, 64 * pn, hi, kt * BK,
+                      bi);
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------------- consumers
+    setmaxnreg_inc<232>();
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane >> 2, c = lane & 3;
+    const int row0 = q0 + 64 * wg + 16 * warp + g, row1 = row0 + 8;
+    const int last_row = q0 + 64 * wg + 63;
+    const float sl2 = kLog2e / sqrtf((float)D);  // scale in the log2 domain
+    float o[D / 128][64];
+#pragma unroll
+    for (int h = 0; h < D / 128; ++h)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) o[h][i] = 0.f;
+    float s[BK / 2];  // S of one k tile: 64 x BK, BK / 8 blocks of 4
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // m in log2 units
+    const uint32_t dq = desc_kmajor(Qs + wg * 64 * 128);
+
+    mbar_wait(q_full, 0);
+    Ring<NS> ring;
+    for (int kt = 0; kt < n_kt; ++kt, ring.advance()) {
+      const int k0 = kt * BK;
+      mbar_wait(&full[ring.stage], ring.parity());
+      if (!p.causal || k0 <= last_row) {
+        const uint32_t dk = desc_kmajor(Ks + ring.stage * Tile::KV_BYTES);
+        const uint32_t dv =
+            desc_mnmajor(Vs + ring.stage * Tile::KV_BYTES, BK * 128);
+
+        // S = Q K^T, d / 16 steps of 16 columns, 4 a 64-column panel
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t a =
+              desc_add(dq, (kk / 4) * kFwdRows * 128 + (kk % 4) * 32);
+          const uint32_t b = desc_add(dk, (kk / 4) * BK * 128 + (kk % 4) * 32);
+          if (kk == 0)
+            wgmma_ss_first<0>(s, a, b);
+          else
+            wgmma_ss<0>(s, a, b);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+
+        // scale, mask, online softmax (rows row0: e = 0, 1; row1: 2, 3)
+        float mb[2] = {kNegInf, kNegInf};
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = s[4 * j + e] * sl2;
+            if (p.causal &&
+                k0 + 8 * j + 2 * c + (e & 1) > (e < 2 ? row0 : row1))
+              x = kNegInf;
+            s[4 * j + e] = x;
+            mb[e >> 1] = fmaxf(mb[e >> 1], x);
+          }
+        }
+        float mn[2], corr[2], ls[2] = {0.f, 0.f};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mn[r] = fmaxf(m[r], quad_max(mb[r]));
+          corr[r] = exp2_approx(m[r] - mn[r]);
+        }
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          const float x = s[i];
+          const float pv =
+              x <= kNegInf / 2 ? 0.f : exp2_approx(x - mn[(i >> 1) & 1]);
+          s[i] = pv;
+          ls[(i >> 1) & 1] += pv;
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          l[r] = l[r] * corr[r] + quad_sum(ls[r]);
+          m[r] = mn[r];
+        }
+#pragma unroll
+        for (int h = 0; h < D / 128; ++h)
+#pragma unroll
+          for (int i = 0; i < 64; ++i) o[h][i] *= corr[(i >> 1) & 1];
+
+        // P as hi + lo bf16 A fragments: accumulator blocks 2kc, 2kc + 1
+        // are the keys [16kc, 16kc + 16)
+        uint32_t ah[BK / 16][4], al[BK / 16][4];
+#pragma unroll
+        for (int kc = 0; kc < BK / 16; ++kc)
+          acc_to_a(&s[8 * kc], &s[8 * kc + 4], ah[kc], al[kc]);
+
+        // O += P V: 16 keys a step (+2048 bytes down V's rows), 128
+        // output columns a product (two panels, BK * 128 bytes apart);
+        // each accumulator's products are one commit group
+#pragma unroll
+        for (int h = 0; h < D / 128; ++h) {
+          fence_regs(o[h]);
+          wgmma_fence();
+#pragma unroll
+          for (int kc = 0; kc < BK / 16; ++kc) {
+            const uint32_t b = desc_add(dv, h * 2 * BK * 128 + kc * 2048);
+            wgmma_rs<1>(o[h], ah[kc], b);
+            wgmma_rs<1>(o[h], al[kc], b);
+          }
+          wgmma_commit();
+          fence_regs(o[h]);
+        }
+        wgmma_wait<0>();
+#pragma unroll
+        for (int h = 0; h < D / 128; ++h) fence_regs(o[h]);
+      }
+      mbar_arrive(&empty[ring.stage]);
+    }
+
+    __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.out);
+    const float l0 = l[0] == 0.f ? 1.f : l[0];
+    const float l1 = l[1] == 0.f ? 1.f : l[1];
+    const long long ob0 = ((long long)(bi * p.T + row0) * p.H + hi) * D;
+    const long long ob1 = ((long long)(bi * p.T + row1) * p.H + hi) * D;
+#pragma unroll
+    for (int h = 0; h < D / 128; ++h) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = 128 * h + 8 * j + 2 * c;
+        *reinterpret_cast<uint32_t*>(&og[ob0 + col]) =
+            pack_bf16(__float2bfloat16_rn(o[h][4 * j] / l0),
+                      __float2bfloat16_rn(o[h][4 * j + 1] / l0));
+        *reinterpret_cast<uint32_t*>(&og[ob1 + col]) =
+            pack_bf16(__float2bfloat16_rn(o[h][4 * j + 2] / l1),
+                      __float2bfloat16_rn(o[h][4 * j + 3] / l1));
+      }
+    }
+    if (c == 0) {
+      p.lse[(long long)bh * p.T + row0] = m[0] * kLn2 + logf(l0);
+      p.lse[(long long)bh * p.T + row1] = m[1] * kLn2 + logf(l1);
+    }
+  }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_fwd_bf16_kernel(const FwdParams p) {
-  constexpr int BQ = kMmaRows, BK = kMmaRows, LD = D + 8;
-  constexpr int NT = BK / 8;   // n tiles of S
-  constexpr int DT = D / 8;    // n tiles of O
-  constexpr int CH = D / 8;    // 16-byte chunks a row
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + BQ * LD;
-  __nv_bfloat16* Vs = Ks + BK * LD;
-  const unsigned short* Vu = reinterpret_cast<const unsigned short*>(Vs);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, c = lane & 3;
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
-  const int bh = blockIdx.y, bi = bh / p.H, hi = bh % p.H;
-  const int q0 = qt * BQ;
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) +
-                            bi * p.q_sb + hi * p.q_sh;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) +
-                            bi * p.k_sb + hi * p.k_sh;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) +
-                            bi * p.v_sb + hi * p.v_sh;
-
-  for (int i = tid; i < BQ * CH; i += kMmaThreads) {
-    const int r = i / CH, col = (i % CH) * 8;
-    *reinterpret_cast<uint4*>(&Qs[r * LD + col]) =
-        *reinterpret_cast<const uint4*>(&qg[(q0 + r) * p.q_st + col]);
-  }
-
-  const float scale = 1.0f / sqrtf((float)D);
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
-  float o[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-
-  const int n_kt = p.causal ? (q0 + BQ - 1) / BK + 1 : p.T / BK;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile is consumed
-    for (int i = tid; i < BK * CH; i += kMmaThreads) {
-      const int r = i / CH, col = (i % CH) * 8;
-      *reinterpret_cast<uint4*>(&Ks[r * LD + col]) =
-          *reinterpret_cast<const uint4*>(&kg[(k0 + r) * p.k_st + col]);
-      *reinterpret_cast<uint4*>(&Vs[r * LD + col]) =
-          *reinterpret_cast<const uint4*>(&vg[(k0 + r) * p.v_st + col]);
-    }
-    __syncthreads();
-
-    // S = Q K^T (f32)
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      const __nv_bfloat16* qa = &Qs[(warp * 16 + g) * LD + kc * 16 + 2 * c];
-      uint32_t a[4];
-      a[0] = *reinterpret_cast<const uint32_t*>(qa);
-      a[1] = *reinterpret_cast<const uint32_t*>(qa + 8 * LD);
-      a[2] = *reinterpret_cast<const uint32_t*>(qa + 8);
-      a[3] = *reinterpret_cast<const uint32_t*>(qa + 8 * LD + 8);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const __nv_bfloat16* kb = &Ks[(j * 8 + g) * LD + kc * 16 + 2 * c];
-        mma_bf16(s[j], a, *reinterpret_cast<const uint32_t*>(kb),
-                 *reinterpret_cast<const uint32_t*>(kb + 8));
-      }
-    }
-
-    // scale, mask, online softmax (rows row0: e = 0,1; row1: e = 2,3)
-    float mb[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * scale;
-        if (p.causal && k0 + j * 8 + 2 * c + (e & 1) > (e < 2 ? row0 : row1))
-          x = kNegInf;
-        s[j][e] = x;
-        mb[e >> 1] = fmaxf(mb[e >> 1], x);
-      }
-    }
-    float mn[2], corr[2], ls[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mn[r] = fmaxf(m[r], quad_max(mb[r]));
-      corr[r] = expf(m[r] - mn[r]);
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = s[j][e];
-        const float pv = x <= kNegInf / 2 ? 0.f : expf(x - mn[e >> 1]);
-        s[j][e] = pv;
-        ls[e >> 1] += pv;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] = l[r] * corr[r] + quad_sum(ls[r]);
-      m[r] = mn[r];
-    }
-#pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      o[j][0] *= corr[0];
-      o[j][1] *= corr[0];
-      o[j][2] *= corr[1];
-      o[j][3] *= corr[1];
-    }
-
-    // O += P V, P as hi + lo bf16; the S accumulator tiles 2kc, 2kc+1
-    // are exactly the A fragment of keys [16kc, 16kc + 16)
-#pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      uint32_t ah[4], al[4];
-      split_bf16(s[2 * kc][0], s[2 * kc][1], ah[0], al[0]);
-      split_bf16(s[2 * kc][2], s[2 * kc][3], ah[1], al[1]);
-      split_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1], ah[2], al[2]);
-      split_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3], ah[3], al[3]);
-      const unsigned short* vb = &Vu[(kc * 16 + 2 * c) * LD + g];
-#pragma unroll
-      for (int j = 0; j < DT; ++j) {
-        const unsigned short* vj = vb + j * 8;
-        const uint32_t b0 = pack_u16(vj[0], vj[LD]);
-        const uint32_t b1 = pack_u16(vj[8 * LD], vj[9 * LD]);
-        mma_bf16(o[j], ah, b0, b1);
-        mma_bf16(o[j], al, b0, b1);
-      }
-    }
-  }
-
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.out);
-  const float l0 = l[0] == 0.f ? 1.f : l[0];
-  const float l1 = l[1] == 0.f ? 1.f : l[1];
-  const long long ob0 = ((long long)(bi * p.T + row0) * p.H + hi) * D;
-  const long long ob1 = ((long long)(bi * p.T + row1) * p.H + hi) * D;
-#pragma unroll
-  for (int j = 0; j < DT; ++j) {
-    const int col = j * 8 + 2 * c;
-    *reinterpret_cast<uint32_t*>(&og[ob0 + col]) = pack_bf16(
-        __float2bfloat16_rn(o[j][0] / l0), __float2bfloat16_rn(o[j][1] / l0));
-    *reinterpret_cast<uint32_t*>(&og[ob1 + col]) = pack_bf16(
-        __float2bfloat16_rn(o[j][2] / l1), __float2bfloat16_rn(o[j][3] / l1));
-  }
-  if (c == 0) {
-    p.lse[(long long)bh * p.T + row0] = m[0] + logf(l0);
-    p.lse[(long long)bh * p.T + row1] = m[1] + logf(l1);
-  }
+cudaError_t launch_bf16(const FwdParams& p, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = map_bthd(&tq, p.q, p.B, p.T, p.H, D, p.q_sb, p.q_st,
+                             p.q_sh, kFwdRows);
+  if (err == cudaSuccess)
+    err = map_bthd(&tk, p.k, p.B, p.T, p.H, D, p.k_sb, p.k_st, p.k_sh,
+                   FwdTile<D>::BK);
+  if (err == cudaSuccess)
+    err = map_bthd(&tv, p.v, p.B, p.T, p.H, D, p.v_sb, p.v_st, p.v_sh,
+                   FwdTile<D>::BK);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             FwdTile<D>::SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid(p.T / kFwdRows, p.B * p.H);
+  flash_fwd_bf16_kernel<D>
+      <<<grid, kFwdThreads, FwdTile<D>::SMEM, stream>>>(tq, tk, tv, p);
+  return cudaGetLastError();
 }
 
 // ----------------------------------------------------------------- f32
@@ -335,7 +417,8 @@ cudaError_t launch(Kernel kernel, int rows, int threads, int smem,
 // q/k/v: [B, T, H, D] with the given (batch, seq, head) strides in
 // elements and unit stride over D; out: [B, T, H, D] contiguous in the
 // input dtype; lse: [B, H, T] f32. dtype: 0 = f32, 1 = bf16. The caller
-// guarantees D in {128, 256}, T % 64 == 0 and 16-byte aligned rows.
+// guarantees D in {128, 256}, T % 128 == 0, a 16-byte aligned
+// start and (batch, seq, head) strides that are multiples of 16 bytes.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int vtp_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, int B, int T, int H,
@@ -348,12 +431,8 @@ extern "C" int vtp_flash_fwd(const void* q, const void* k, const void* v,
               k_sh, v_sb, v_st, v_sh, B,
               T,    H,    causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && D == 128)
-    return launch(flash_fwd_bf16_kernel<128>, kMmaRows, kMmaThreads,
-                  mma_smem_bytes<128>(), p, s);
-  if (dtype == 1 && D == 256)
-    return launch(flash_fwd_bf16_kernel<256>, kMmaRows, kMmaThreads,
-                  mma_smem_bytes<256>(), p, s);
+  if (dtype == 1 && D == 128) return launch_bf16<128>(p, s);
+  if (dtype == 1 && D == 256) return launch_bf16<256>(p, s);
   if (dtype == 0 && D == 128)
     return launch(flash_fwd_f32_kernel<128>, kSimtRows, kSimtThreads,
                   simt_smem_bytes<128>(), p, s);

@@ -13,7 +13,8 @@ the kernel does not take, a failed build or a failed launch raises.
 
 The block sizes (and the FLASH_BLOCK / FLASH_BLOCK_BWD overrides) decide
 the dispatch exactly as in the reference; the CUDA kernels tile by their
-own 32- and 64-row tiles, which divide every supported t.
+own 32- to 128-row tiles, which divide every t that `supported()` admits
+at the default blocks.
 """
 
 from __future__ import annotations
@@ -26,10 +27,11 @@ import torch
 
 NEG_INF = -1e30
 
-# what the CUDA kernel takes: head dims (a multiple of 128, at most
-# 256) and the q/k tile both of its instantiations divide t by
+# what the CUDA kernels take: head dims (a multiple of 128, at most
+# 256) and the largest q/k tile they divide t by (the forward's 128 q
+# rows a block, dK/dV's 128 k rows at d = 128)
 KERNEL_HEAD_DIMS = (128, 256)
-KERNEL_SEQ_MULTIPLE = 64
+KERNEL_SEQ_MULTIPLE = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -186,15 +188,18 @@ def _check_kernel_inputs(kernel: str, **xs) -> None:
 
 
 def _check_rows(kernel: str, ref, **xs) -> None:
-    """lse and Delta: f32 [b, h, t] contiguous, on ref's device."""
+    """lse and Delta: f32 [b, h, t] contiguous with a 16-byte aligned
+    start (the kernels load them by TMA), on ref's device."""
     b, t, h, _ = ref.shape
     for name, x in xs.items():
         if x.dtype != torch.float32 or tuple(x.shape) != (b, h, t) or \
-                not x.is_contiguous() or x.device != ref.device:
+                not x.is_contiguous() or x.device != ref.device or \
+                x.data_ptr() % 16:
             raise ValueError(
                 f"{kernel} kernel: {name} must be a contiguous float32 "
-                f"[{b}, {h}, {t}] tensor on {ref.device}; got "
-                f"{x.dtype} {tuple(x.shape)} on {x.device}")
+                f"[{b}, {h}, {t}] tensor with a 16-byte aligned start on "
+                f"{ref.device}; got {x.dtype} {tuple(x.shape)} on "
+                f"{x.device}")
 
 
 def _raise_on(lib, rc: int, kernel: str) -> None:

@@ -36,13 +36,14 @@
 //  * Causal k tiles past the diagonal are neither loaded nor computed (a
 //    consumer skips a tile wholly above its own rows), and the heaviest q
 //    tiles are launched first.
-//  * What it gives up: P keeps its two-term bf16 split (P = hi + lo, 16
-//    of f32's 24 significant bits) so bf16 out stays within one rounding
-//    step of the f32 plain version at every case; the lo term costs a
-//    second P V product, 1.5x the needed tensor work. The two consumer
-//    warpgroups are not scheduled in ping-pong, and a warpgroup's softmax
-//    does not overlap its own products. out is written from registers,
-//    not through shared memory and a TMA store.
+//  * P enters P V as one bf16 term. Every bf16 case of chip_smoke.py
+//    holds the 1e-2 + 1e-2 relative tolerance with it; a second, lo term
+//    (P = hi + lo) would cost 1.5x the tensor work (both variants'
+//    errors and times: PERF.md).
+//  * What it gives up: the two consumer warpgroups are not scheduled in
+//    ping-pong, and a warpgroup's softmax does not overlap its own
+//    products. out is written from registers, not through shared memory
+//    and a TMA store.
 //  * f32: CUDA-core FMAs in full f32 (a tensor-core path would need TF32,
 //    whose 10-bit mantissa misses the f32 tolerance), 32-row tiles, plain
 //    loads; only the parity checks use it.
@@ -225,12 +226,12 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
 #pragma unroll
           for (int i = 0; i < 64; ++i) o[h][i] *= corr[(i >> 1) & 1];
 
-        // P as hi + lo bf16 A fragments: accumulator blocks 2kc, 2kc + 1
-        // are the keys [16kc, 16kc + 16)
-        uint32_t ah[BK / 16][4], al[BK / 16][4];
+        // P as bf16 A fragments: accumulator blocks 2kc, 2kc + 1 are the
+        // keys [16kc, 16kc + 16)
+        uint32_t ap[BK / 16][4];
 #pragma unroll
         for (int kc = 0; kc < BK / 16; ++kc)
-          acc_to_a(&s[8 * kc], &s[8 * kc + 4], ah[kc], al[kc]);
+          acc_to_a(&s[8 * kc], &s[8 * kc + 4], ap[kc]);
 
         // O += P V: 16 keys a step (+2048 bytes down V's rows), 128
         // output columns a product (two panels, BK * 128 bytes apart);
@@ -242,8 +243,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
 #pragma unroll
           for (int kc = 0; kc < BK / 16; ++kc) {
             const uint32_t b = desc_add(dv, h * 2 * BK * 128 + kc * 2048);
-            wgmma_rs<1>(o[h], ah[kc], b);
-            wgmma_rs<1>(o[h], al[kc], b);
+            wgmma_rs<1>(o[h], ap[kc], b);
           }
           wgmma_commit();
           fence_regs(o[h]);

@@ -7,8 +7,10 @@ from `volcano_tpu_torch/csrc`; (3) hold the flash-forward kernel against
 its plain PyTorch version at every shape and dtype it serves; (4) time
 the kernel, its plain version and, as a yardstick only,
 `scaled_dot_product_attention` at the serving shape; (5) the same two
-checks for the backward kernels (dQ, dK/dV) against `flash_bwd_plain`,
-with the backward of `scaled_dot_product_attention` as the yardstick;
+checks for the backward kernels: dQ and the Delta it writes against
+`flash_bwd_dq_plain` and `bwd_delta`, dK/dV (on that Delta) against
+`flash_bwd_plain`, with the backward of `scaled_dot_product_attention`
+as the yardstick;
 (6) full-width parity of the model's flash path against its eager
 attention path in f32, on logits and on every parameter's gradient;
 (7) the serving slice: the flagship d2048-L8 model in bf16 behind
@@ -137,19 +139,28 @@ def ptxas_report(text):
 
 
 def phase_build(build):
+    """Build the kernels and print ptxas' report; fails if a bf16 kernel
+    spills or ptxas serialises a wgmma ("Performance Loss")."""
     t0 = time.monotonic()
     build.load_library()
     log(f"[build] kernels built and loaded in {time.monotonic() - t0:.1f} s "
         f"({build.build_dir()})")
     text = build.build_log()
+    loss = []
     for line in text.splitlines():
         if any(k in line for k in ("entry function", "registers", "spill",
                                    "error", "Performance Loss")):
             log(f"[build] {line.strip()}")
+        if "Performance Loss" in line:
+            loss.append(line.strip())
     report = ptxas_report(text)
     for (kern, d), (regs, spill) in sorted(report.items()):
         log(f"[build] {kern} bf16 d={d}: {regs} registers at entry, "
             f"{spill} bytes spilled")
+    spilled = sorted(key for key, (_, spill) in report.items() if spill)
+    if len(report) != 6 or spilled or loss:
+        raise AssertionError(f"ptxas: {len(report)} of 6 bf16 kernels "
+                             f"reported, spills in {spilled}, {loss}")
     return report
 
 
@@ -264,9 +275,11 @@ def phase_parity(model):
 
 
 def phase_bwd_vs_plain(fa):
-    """Both backward kernels against `flash_bwd_plain` for dq, dk and
-    dv, on the forward kernel's out and lse; returns the largest error
-    of each kernel at the training shape."""
+    """The dQ kernel against `flash_bwd_dq_plain` for dq and against
+    `bwd_delta` for the Delta it writes, and the dK/dV kernel, on that
+    Delta, against `flash_bwd_plain` for dk and dv; on the forward
+    kernel's out and lse. Returns the largest error of each kernel at
+    the training shape."""
     slice_err = None
     for i, (shape, dtype, causal, fused) in enumerate(kernel_cases()):
         q, k, v = rand_qkv(shape, dtype, seed=200 + i, fused=fused)
@@ -274,18 +287,23 @@ def phase_bwd_vs_plain(fa):
         # tensor, so the TMA base is offset too
         do = rand_qkv(shape, dtype, seed=300 + i, fused=fused)[1]
         out, lse = fa._launch(q, k, v, causal)
-        delta = fa.bwd_delta(out, do)
-        dq = fa._launch_dq(q, k, v, do, lse, delta, causal)
+        dq, delta = fa._launch_dq(q, k, v, out, do, lse, causal)
         dk, dv = fa._launch_dkv(q, k, v, do, lse, delta, causal)
         torch.cuda.synchronize()
-        ref = fa.flash_bwd_plain(q, k, v, out, lse, do, causal)
+        ref_dq, _ = fa.flash_bwd_dq_plain(q, k, v, out, do, lse, causal)
+        ref_delta = fa.bwd_delta(out, do)
+        _, ref_dk, ref_dv = fa.flash_bwd_plain(q, k, v, out, lse, do, causal)
+        got, ref = (dq, dk, dv), (ref_dq, ref_dk, ref_dv)
         errs = [(x.float() - r.float()).abs().max().item()
-                for x, r in zip((dq, dk, dv), ref)]
+                for x, r in zip(got, ref)]
+        delta_err = (delta - ref_delta).abs().max().item()
         tag = case_tag(shape, dtype, causal, fused)
         big = max(r.float().abs().max().item() for r in ref)
         log(f"[bwd kernel] {tag}: max|err| dq {errs[0]:.3e}, dk "
-            f"{errs[1]:.3e}, dv {errs[2]:.3e} (max|grad| {big:.3e})")
-        for name, x, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+            f"{errs[1]:.3e}, dv {errs[2]:.3e} (max|grad| {big:.3e}); "
+            f"delta {delta_err:.3e} (max|delta| "
+            f"{ref_delta.abs().max().item():.3e})")
+        for name, x, r in zip(("dq", "dk", "dv"), got, ref):
             if not torch.isfinite(x.float()).all():
                 raise AssertionError(f"non-finite {name} at {tag}")
             if dtype == torch.float32:
@@ -293,29 +311,47 @@ def phase_bwd_vs_plain(fa):
             else:
                 torch.testing.assert_close(x.float(), r.float(),
                                            atol=TOL_BF16, rtol=TOL_BF16)
+        # Delta: f32 sums of the same products in another order
+        torch.testing.assert_close(delta, ref_delta, atol=ATOL_F32, rtol=0.0)
         if shape == SLICE_SHAPE and not fused:
-            slice_err = {"dq": errs[0], "dkv": max(errs[1:])}
-        del q, k, v, do, out, lse, delta, dq, dk, dv, ref
+            slice_err = {"dq": errs[0], "dkv": max(errs[1:]),
+                         "delta": delta_err}
+        del q, k, v, do, out, lse, delta, dq, dk, dv, got, ref, ref_delta
     torch.cuda.empty_cache()
     return slice_err
 
 
 def phase_bwd_timing(fa, flop_peak, byte_peak):
-    """The dQ and dK/dV kernels alone, `flash_bwd_plain` and, as the
-    yardstick of the two kernels together, the backward of
-    `scaled_dot_product_attention` (grad of a stored output)."""
+    """The dQ and dK/dV kernels alone, the whole `flash_bwd`, the plain
+    versions and, as the yardstick of the two kernels together, the
+    backward of `scaled_dot_product_attention` (grad of a stored
+    output)."""
     b, t, h, d = SLICE_SHAPE
     q, k, v = rand_qkv(SLICE_SHAPE, torch.bfloat16, seed=17)
     do = rand_qkv(SLICE_SHAPE, torch.bfloat16, seed=18)[0]
     out, lse = fa._launch(q, k, v, True)
-    delta = fa.bwd_delta(out, do)
+    _, delta = fa._launch_dq(q, k, v, out, do, lse, True)
     dq_ms = cuda_time_ms(
-        lambda: fa._launch_dq(q, k, v, do, lse, delta, True), iters=20)
+        lambda: fa._launch_dq(q, k, v, out, do, lse, True), iters=20)
     dkv_ms = cuda_time_ms(
         lambda: fa._launch_dkv(q, k, v, do, lse, delta, True), iters=20)
-    delta_ms = cuda_time_ms(lambda: fa.bwd_delta(out, do), iters=20)
     bwd_ms = cuda_time_ms(
         lambda: fa.flash_bwd(q, k, v, out, lse, do, True), iters=20)
+    # what one flash_bwd runs on the device: the two kernels and nothing
+    # else (Delta comes from the dQ kernel, not from a torch op)
+    _, by_name = profile_kernels(
+        lambda: fa.flash_bwd(q, k, v, out, lse, do, True))
+    if not by_name:
+        log("[bwd timing] the profiler saw no device kernels: what "
+            "flash_bwd runs is not measured")
+    elif sorted(kernel_group(n) for n in by_name) != ["flash_bwd_dkv",
+                                                      "flash_bwd_dq"]:
+        raise AssertionError(f"flash_bwd ran {sorted(by_name)}")
+    else:
+        log(f"[bwd timing] flash_bwd runs {sorted(by_name)} and nothing else")
+    dq_plain_ms = cuda_time_ms(
+        lambda: fa.flash_bwd_dq_plain(q, k, v, out, do, lse, True), iters=3,
+        warmup=1)
     plain_ms = cuda_time_ms(
         lambda: fa.flash_bwd_plain(q, k, v, out, lse, do, True), iters=3,
         warmup=1)
@@ -329,8 +365,8 @@ def phase_bwd_timing(fa, flop_peak, byte_peak):
     pairs = b * h * t * (t + 1) / 2
     tensor = b * t * h * d * 2
     rows = b * h * t * 4
-    # dQ: S, dP, dQ products; reads q,k,v,do,lse,delta, writes dq
-    dq_bound = bound(3 * 2.0 * d * pairs, 5 * tensor + 2 * rows,
+    # dQ: S, dP, dQ products; reads q,k,v,do,out,lse, writes dq,delta
+    dq_bound = bound(3 * 2.0 * d * pairs, 6 * tensor + 2 * rows,
                      flop_peak, byte_peak)
     # dK/dV: S, dP, dV, dK products; reads q,k,v,do,lse,delta, writes dk,dv
     dkv_bound = bound(4 * 2.0 * d * pairs, 6 * tensor + 2 * rows,
@@ -338,17 +374,16 @@ def phase_bwd_timing(fa, flop_peak, byte_peak):
     log(f"[bwd timing] {list(SLICE_SHAPE)} bf16 causal: dq kernel "
         f"{dq_ms:.4f} ms (bound {dq_bound[0]:.4f}, {dq_bound[1]}), dkv "
         f"kernel {dkv_ms:.4f} ms (bound {dkv_bound[0]:.4f}, "
-        f"{dkv_bound[1]}); both {dq_ms + dkv_ms:.4f} ms against sdpa "
-        f"backward {library_ms:.4f} ms; delta glue {delta_ms:.4f} ms; "
-        f"flash_bwd whole {bwd_ms:.4f} ms; plain {plain_ms:.4f} ms")
+        f"{dkv_bound[1]}); flash_bwd whole {bwd_ms:.4f} ms against sdpa "
+        f"backward {library_ms:.4f} ms ({bwd_ms / library_ms:.3f}x); plain "
+        f"dq {dq_plain_ms:.4f} ms, plain dq, dk, dv {plain_ms:.4f} ms")
     del q, k, v, do, out, lse, delta, qt, kt, vt, ref, dot
     torch.cuda.empty_cache()
     return {"dq": dict(ms=dq_ms, bound_ms=dq_bound[0],
-                       bound_by=dq_bound[1]),
+                       bound_by=dq_bound[1], plain_ms=dq_plain_ms),
             "dkv": dict(ms=dkv_ms, bound_ms=dkv_bound[0],
-                        bound_by=dkv_bound[1]),
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "delta_ms": delta_ms, "bwd_ms": bwd_ms}
+                        bound_by=dkv_bound[1], plain_ms=plain_ms),
+            "library_ms": library_ms, "bwd_ms": bwd_ms}
 
 
 def leaf_items(tree):
@@ -701,20 +736,21 @@ def main() -> int:
          "ms": timing["ms"], "plain_ms": timing["plain_ms"],
          "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
          "library_ms": timing["library_ms"], **common},
-        {"name": "flash_bwd_dq", "route": "cuda", "design": "mma.sync",
+        {"name": "flash_bwd_dq", "route": "cuda", "design": "wgmma+tma",
          "source": "volcano_tpu_torch/csrc/flash_bwd.cu",
          "replaces": f"{src}:102",
          "launches": tr["launches"]["flash_bwd_dq"],
-         "max_abs_err": bwd_err["dq"], "ms": bwd["dq"]["ms"],
-         "plain_ms": bwd["plain_ms"], "bound_ms": bwd["dq"]["bound_ms"],
-         "bound_by": bwd["dq"]["bound_by"],
+         "max_abs_err": bwd_err["dq"], "delta_max_abs_err": bwd_err["delta"],
+         "ms": bwd["dq"]["ms"], "plain_ms": bwd["dq"]["plain_ms"],
+         "bound_ms": bwd["dq"]["bound_ms"], "bound_by": bwd["dq"]["bound_by"],
          "library_ms": bwd["library_ms"], **common},
         {"name": "flash_bwd_dkv", "route": "cuda", "design": "wgmma+tma",
          "source": "volcano_tpu_torch/csrc/flash_bwd.cu",
          "replaces": f"{src}:144",
          "launches": tr["launches"]["flash_bwd_dkv"],
          "max_abs_err": bwd_err["dkv"], "ms": bwd["dkv"]["ms"],
-         "plain_ms": bwd["plain_ms"], "bound_ms": bwd["dkv"]["bound_ms"],
+         "plain_ms": bwd["dkv"]["plain_ms"],
+         "bound_ms": bwd["dkv"]["bound_ms"],
          "bound_by": bwd["dkv"]["bound_by"],
          "library_ms": bwd["library_ms"], **common}]
     for kern in kernels:

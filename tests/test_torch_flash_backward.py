@@ -3,7 +3,8 @@ JAX package's Pallas backward kernels, run in interpret mode on the CPU.
 
 Inputs come from numpy and go to both sides.  On a CPU tensor the
 port's `_FlashAttention` runs the kernels' plain PyTorch versions
-(`flash_fwd_plain`, `flash_bwd_plain`); the CUDA kernels themselves are
+(`flash_fwd_plain`, `flash_bwd_plain`; `flash_bwd_dq_plain` is the dQ
+kernel's own, with the Delta it writes); the CUDA kernels themselves are
 held against those plain versions on the GPU by chip_smoke.py.
 """
 
@@ -86,6 +87,52 @@ def test_plain_bwd_matches_jax_flash_bh_bwd(causal):
         torch.from_numpy(np.array(lse).reshape(b, h, t)),
         torch.from_numpy(do), causal)
     _assert_grads(got, [jfa._from_bh(x, b, h) for x in ref], ATOL_PLAIN)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_dq_matches_jax_flash_bh_bwd(causal):
+    """flash_bwd_dq_plain (the dQ kernel's plain version) against the
+    dq of the Pallas kernels `_flash_bh_bwd` runs, both given the JAX
+    forward's out and lse, and its Delta against the reference's
+    expression in `_flash_bh_bwd`; f32, ATOL_PLAIN (sum order only)."""
+    b, t, h, d = 2, 256, 2, 128
+    q, k, v, do = _arrays(4, b, t, h, d, seed=11)
+
+    def bh(x):
+        return jnp.asarray(x).transpose(0, 2, 1, 3).reshape(b * h, t, d)
+
+    out, lse = jfa._flash_bh(bh(q), bh(k), bh(v), block_q=128,
+                             block_k=128, causal=causal, interpret=True)
+    ref_dq = jfa._flash_bh_bwd(bh(q), bh(k), bh(v), out, lse, bh(do),
+                               block_q=128, block_k=128, causal=causal,
+                               interpret=True)[0]
+    ref_delta = jnp.sum(bh(do).astype(jnp.float32) * out.astype(jnp.float32),
+                        axis=-1).reshape(b, h, t)
+    dq, delta = tfa.flash_bwd_dq_plain(
+        *(torch.from_numpy(x) for x in (q, k, v)),
+        torch.from_numpy(np.array(jfa._from_bh(out, b, h))),
+        torch.from_numpy(do),
+        torch.from_numpy(np.array(lse).reshape(b, h, t)), causal)
+    assert dq.shape == (b, t, h, d) and dq.dtype == torch.float32
+    assert delta.shape == (b, h, t) and delta.dtype == torch.float32
+    assert delta.is_contiguous()
+    np.testing.assert_allclose(dq.numpy(),
+                               np.asarray(jfa._from_bh(ref_dq, b, h)),
+                               atol=ATOL_PLAIN, rtol=ATOL_PLAIN)
+    np.testing.assert_allclose(delta.numpy(), np.asarray(ref_delta),
+                               atol=ATOL_PLAIN, rtol=ATOL_PLAIN)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_dq_agrees_with_plain_bwd(dtype):
+    """The dQ kernel's plain version gives flash_bwd_plain's dq and
+    bwd_delta's Delta exactly: the same f32 arithmetic."""
+    q, k, v, out, do = (torch.from_numpy(x).to(dtype)
+                        for x in _arrays(5, t=128, seed=12))
+    _, lse = tfa.flash_fwd_plain(q, k, v)
+    dq, delta = tfa.flash_bwd_dq_plain(q, k, v, out, do, lse)
+    assert torch.equal(dq, tfa.flash_bwd_plain(q, k, v, out, lse, do)[0])
+    assert torch.equal(delta, tfa.bwd_delta(out, do))
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -190,7 +237,10 @@ def test_cpu_path_launches_nothing():
 @pytest.mark.parametrize("launcher", ["_launch_dq", "_launch_dkv"])
 def test_cuda_launchers_refuse_cpu_tensors(launcher):
     b, t, h, d = 1, 128, 2, 128
-    q, k, v, do = (torch.from_numpy(x) for x in _arrays(4, b, t, h, d, 10))
+    q, k, v, out, do = (torch.from_numpy(x)
+                        for x in _arrays(5, b, t, h, d, 10))
     rows = torch.zeros((b, h, t))
+    args = {"_launch_dq": (q, k, v, out, do, rows),       # ..., out, do, lse
+            "_launch_dkv": (q, k, v, do, rows, rows)}     # ..., do, lse, delta
     with pytest.raises(ValueError, match="not on a CUDA device"):
-        getattr(tfa, launcher)(q, k, v, do, rows, rows, True)
+        getattr(tfa, launcher)(*args[launcher], True)

@@ -3,24 +3,25 @@
 //
 // Replaces: volcano_tpu/workloads/ops/flash_attention.py:_bwd_dq_kernel
 // (TPU grid (b*h, t/block_q_bwd)) and :_bwd_dkv_kernel (TPU grid
-// (b*h, t/block_k_bwd)), both launched by _flash_bh_bwd.
+// (b*h, t/block_k_bwd)), both launched by _flash_bh_bwd, and the jnp
+// Delta that _flash_bh_bwd computes before them.
 //
 // What they compute, as the TPU kernels do, all in f32: with
 // scale = rsqrt(d), S = scale * Q K^T (masked scores -1e30),
 // P = exp(S - lse) with masked p exactly 0, dP = dO V^T and
 // dS = P o (dP - Delta), where lse [b, h, t] is what the forward kernel
-// wrote and Delta = rowsum(dO o O) [b, h, t] comes from the wrapper (a
-// torch op, as the reference computes it in jnp outside its kernels):
-//   vtp_flash_bwd_dq:   dQ = scale * dS K
-//   vtp_flash_bwd_dkv:  dK = scale * dS^T Q,  dV = P^T dO
+// wrote and Delta = rowsum(dO o O) [b, h, t]:
+//   vtp_flash_bwd_dq:   dQ = scale * dS K, and Delta, which it writes
+//   vtp_flash_bwd_dkv:  dK = scale * dS^T Q,  dV = P^T dO, on that Delta
 //
 // What bounds them on an H100: at the training shape (b*h = 128,
 // t = 2048, d = 128, bf16, causal) dQ does 3 products of 2d FLOP (S, dP,
 // dQ) and dK/dV 4 (S, dP, dV, dK) per unmasked (q, k) pair, over
-// b*h*t(t+1)/2 pairs: 2.06e11 and 2.75e11 FLOP against 5 and 6 tensors of
-// 67 MB moved, 600-700 FLOP a byte, above the card's ~295 FLOP/byte
-// ridge: both are bound by the tensor cores' rate, 0.209 and 0.278 ms at
-// 989 TFLOP/s.
+// b*h*t(t+1)/2 pairs: 2.06e11 and 2.75e11 FLOP against 6 tensors of
+// 67 MB moved each (dQ: q, k, v, dO, O read, dq written; dK/dV: q, k, v,
+// dO read, dk, dv written), 500-700 FLOP a byte, above the card's ~295
+// FLOP/byte ridge: both are bound by the tensor cores' rate, 0.209 and
+// 0.278 ms at 989 TFLOP/s.
 //
 // Both kernels: as on the TPU, one block owns one q tile (dQ) or one k
 // tile (dK/dV) of one (batch, head) and nothing is shared between blocks:
@@ -28,51 +29,68 @@
 // TPU's sequential grid axis becomes the tile loop inside the block.
 // Causal tiles past the diagonal are skipped and the heaviest tiles start
 // first: the last q tiles for dQ, the first k tiles for dK/dV. P and dS
-// are f32; dQ feeds dS to its product as two bf16 terms (hi + lo, 16
-// significant bits, 4/3 of the needed tensor work), dK/dV feeds P and dS
-// as one bf16 term each, which holds the same bf16 tolerance at every
-// case of chip_smoke.py (errors of both variants: PERF.md).
+// are f32; dK/dV feeds P and dS to its products as one bf16 term each,
+// dQ feeds dS as two (hi + lo, 16 significant bits); both variants were
+// held to the same bf16 tolerance at every case of chip_smoke.py
+// (errors and times: PERF.md).
 //
-// dK/dV, bf16 (wgmma + TMA, warp-specialised):
+// The bf16 kernels (wgmma + TMA, warp-specialised):
 //  * A block of 384 threads: two consumer warpgroups and one producer
 //    warpgroup, of which one thread issues every load; setmaxnreg gives
-//    the consumers 232 registers and the producer 40. At d = 128 the block
-//    owns 128 k rows, 64 a consumer warpgroup; at d = 256 the two dK + dV
-//    accumulators of 64 rows would not fit one warpgroup, so the block
-//    owns 64 k rows and each consumer warpgroup half of d's output
-//    columns, both computing the same S^T and dP^T.
-//  * TMA brings K and V in once and streams (Q, dO, lse, Delta) q tiles of
-//    64 rows through a ring of 3 (d = 128) or 2 (d = 256) stages with full
-//    and empty mbarriers, starting from the tile that holds the diagonal
-//    (start_q of the TPU kernel). A consumer skips a tile wholly above its
-//    own k rows.
-//  * S^T = K Q^T and dP^T = V dO^T are wgmmas with both operands in
-//    shared memory (K-major), so a consumer's rows are keys and lse and
-//    Delta are read by column from the staged q tile.
-//  * dV += P^T dO and dK += dS^T Q take A from registers (the converted
-//    S^T / dS^T accumulators) and B = dO or Q from shared memory with the
-//    transpose bit: the 128-byte-swizzled tile serves both products, with
-//    no gathers.
-//  * Registers: dK and dV are 128 f32 a consumer thread (64 rows x 128
-//    columns each), S^T and dP^T 64 more; their bf16 fragments replace
-//    them 16 columns at a time before the second pair of products. That
-//    fits the consumers' 232 registers without a spill, as ptxas reports
-//    in chip_smoke.py, as long as nothing in the consumer path traps (see
-//    mbar_wait in hopper_common.cuh).
-//  * What it gives up: no overlap inside a warpgroup of its elementwise
-//    work with its products; dK and dV written from registers, not
-//    through a TMA store.
+//    the consumers 232 registers and the producer 40.
+//  * TMA brings the block's resident tiles in once and streams the others
+//    through a ring of stages with full and empty mbarriers; tiles are
+//    128-byte swizzled 64-column panels read by stride from [b, t, h, d]
+//    (hopper_common.cuh). A consumer skips a tile wholly past its rows.
+//  * The first two products (S and dP, or S^T and dP^T) are wgmmas with
+//    both operands in shared memory (K-major); the second pair take A
+//    from registers (the converted dS, or P^T and dS^T, accumulators) and
+//    B from shared memory with the transpose bit: the 128-byte-swizzled
+//    tile serves both products, with no gathers.
+//  * Keep trap / __trap / assert out of the consumer path (see mbar_wait
+//    in hopper_common.cuh): it makes ptxas spill the accumulators and run
+//    every wgmma alone.
+//  * What they give up: no overlap inside a warpgroup of its elementwise
+//    work with its products; outputs written from registers, not through
+//    a TMA store.
 //
-// dQ, bf16 (mma.sync, not yet redesigned): a block of 4 warps (8 at
-// d = 256, splitting d's output columns) owns 64 q rows and loads K/V
-// tiles with plain 16-byte loads between __syncthreads(); K is gathered
-// down its columns with 16-bit shared loads.
+// dQ, bf16: the block owns 128 q rows, 64 a consumer warpgroup. Q and dO
+// come in once; K/V tiles of 64 rows (32 at d = 256) stream from key 0
+// up to the diagonal through a 3-stage ring. S = Q K^T and dP = dO V^T
+// are shared-memory wgmmas, dS = P o (dP - Delta) is computed on their
+// accumulators with P = exp2 in the log2 domain (ex2.approx, scale *
+// log2(e) folded in, masked p exactly 0 on the diagonal tile), and
+// dQ += dS K is a register-A wgmma with K transposed by the descriptor.
+// Registers: the dQ accumulator is 64 f32 a consumer thread per 128
+// columns; S and dP are BK / 2 each, so at d = 256 (128 for dQ) the K/V
+// tile is cut to 32 rows, which also keeps Q, dO and three stages within
+// 227 KB of shared memory (160 KB at d = 128, 224 KB at d = 256).
+// Delta: each consumer thread reduces its own two rows' dO o O before its
+// first dS, O by plain 16-byte loads issued before it waits on the Q/dO
+// TMA (so their latency hides behind it) and dO from the staged tile; a
+// quad of threads shares a row. This needs no shared memory (there is no
+// room for an O tile at d = 256) and no barrier between warpgroups, and
+// it keeps the work off the producer warpgroup, whose 40 registers hold
+// few loads in flight. The consumers write Delta [b, h, t] f32 for the
+// dK/dV kernel, which loads it by TMA.
+//
+// dK/dV, bf16: at d = 128 the block owns 128 k rows, 64 a consumer
+// warpgroup; at d = 256 the two dK + dV accumulators of 64 rows would not
+// fit one warpgroup, so the block owns 64 k rows and each consumer
+// warpgroup half of d's output columns, both computing the same S^T and
+// dP^T. K and V come in once; (Q, dO, lse, Delta) q tiles of 64 rows
+// stream through a ring of 3 (d = 128) or 2 (d = 256) stages, starting
+// from the tile that holds the diagonal (start_q of the TPU kernel).
+// S^T = K Q^T and dP^T = V dO^T put keys on a consumer's rows, so lse and
+// Delta are read by column from the staged q tile. dK and dV are 128 f32
+// a consumer thread, S^T and dP^T 64 more; their bf16 fragments replace
+// them 16 columns at a time before the second pair of products.
 //
 // f32, both kernels: CUDA-core FMAs in full f32 (TF32 would miss the f32
 // tolerance), 32-row tiles, a quad of threads per row; only the parity
-// checks use them.
+// checks use them. The f32 dQ kernel writes Delta too.
 //
-// q/k/v/dO are read in their [b, t, h, d] layout by stride; dQ/dK/dV are
+// q/k/v/dO/O are read in their [b, t, h, d] layout by stride; dQ/dK/dV are
 // written [b, t, h, d] contiguous.
 
 #include <cuda_bf16.h>
@@ -89,15 +107,17 @@ struct BwdParams {
   const void* k;
   const void* v;
   const void* dout;
+  const void* out;     // the forward's output (dQ only)
   const float* lse;    // [B, H, T]
-  const float* delta;  // [B, H, T]
+  float* delta;        // [B, H, T]: written by dQ, read by dK/dV
   void* dq;
   void* dk;
   void* dv;
   long long q_sb, q_st, q_sh;
   long long k_sb, k_st, k_sh;
   long long v_sb, v_st, v_sh;
-  long long o_sb, o_st, o_sh;
+  long long o_sb, o_st, o_sh;  // dout
+  long long out_sb, out_st, out_sh;
   int B, T, H;
   int causal;
 };
@@ -115,128 +135,286 @@ __device__ __forceinline__ long long out_row(const BwdParams& p, int bi,
 }
 
 // ---------------------------------------------------------------- bf16
-// dQ: a block has 128 * NSPLIT threads: warp w owns tile rows
-// [16 (w % 4), 16 (w % 4) + 16) and output columns [DW (w / 4), + DW).
-constexpr int kMmaTile = 64;  // q rows of a dQ block
+// Both bf16 kernels: 384 threads, warpgroups 0 and 1 consume, warpgroup 2
+// produces.
+constexpr int kBwdThreads = 384;
+constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D, int BK>
-constexpr int dq_bf16_smem() {
-  return (2 * kMmaTile + 2 * BK) * (D + 8) * 2;  // Q, dO, K, V tiles
+// bf16x8 dot product in f32, added to acc
+__device__ __forceinline__ float dot_bf16x8(uint4 a, uint4 b, float acc) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(x[i]), w = __bfloat1622float2(y[i]);
+    acc = fmaf(u.x, w.x, acc);
+    acc = fmaf(u.y, w.y, acc);
+  }
+  return acc;
 }
 
-template <int D, int BK, int NSPLIT>
-__global__ void __launch_bounds__(128 * NSPLIT)
-    flash_bwd_dq_bf16_kernel(const BwdParams p) {
-  constexpr int BQ = kMmaTile, LD = D + 8, NT = BK / 8;
-  constexpr int DW = D / NSPLIT, DT = DW / 8, NTH = 128 * NSPLIT;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* dOs = Qs + BQ * LD;
-  __nv_bfloat16* Ks = dOs + BQ * LD;
-  __nv_bfloat16* Vs = Ks + BK * LD;
-  const unsigned short* Ku = reinterpret_cast<const unsigned short*>(Ks);
+// dQ: a block owns 128 q rows, 64 a consumer warpgroup.
+constexpr int kDqRows = 128;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, c = lane & 3;
-  const int wr = (warp % 4) * 16, wc = (warp / 4) * DW;
+template <int D>
+struct DqTile {
+  static constexpr int BK = D == 128 ? 64 : 32;  // k rows of a stage
+  static constexpr int NS = 3;                   // stages of the ring
+  static constexpr int Q_BYTES = kDqRows * D * 2;  // Q or dO
+  static constexpr int KV_BYTES = BK * D * 2;      // K or V of one stage
+  static constexpr int ST_OFF = 2 * Q_BYTES;
+  static constexpr int BAR_OFF = ST_OFF + 2 * NS * KV_BYTES;
+  // 1 KB of slack for the 1024-byte alignment, then the barriers
+  static constexpr int SMEM = 1024 + BAR_OFF + (1 + 2 * NS) * 8;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             const __grid_constant__ CUtensorMap tm_do,
+                             const BwdParams p) {
+  using Tile = DqTile<D>;
+  constexpr int BQ = kDqRows, BK = Tile::BK, NS = Tile::NS, NP = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = smem_align1k(smem_raw);
+  unsigned char* dOs = Qs + Tile::Q_BYTES;
+  unsigned char* Ks = Qs + Tile::ST_OFF;  // stage s: + s * KV_BYTES
+  unsigned char* Vs = Ks + NS * Tile::KV_BYTES;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Qs + Tile::BAR_OFF);
+  uint64_t* full = q_full + 1;  // [NS]: K and V of the stage landed
+  uint64_t* empty = full + NS;  // [NS]: both consumers are done with it
+
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
   const int bh = blockIdx.y, bi = bh / p.H, hi = bh % p.H;
   const int q0 = qt * BQ;
-  const __nv_bfloat16* qg =
-      head<__nv_bfloat16>(p.q, p.q_sb, p.q_sh, bi, hi);
-  const __nv_bfloat16* kg =
-      head<__nv_bfloat16>(p.k, p.k_sb, p.k_sh, bi, hi);
-  const __nv_bfloat16* vg =
-      head<__nv_bfloat16>(p.v, p.v_sb, p.v_sh, bi, hi);
-  const __nv_bfloat16* og =
-      head<__nv_bfloat16>(p.dout, p.o_sb, p.o_sh, bi, hi);
-  copy_rows<D>(Qs, LD, qg, p.q_st, q0, BQ, tid, NTH);
-  copy_rows<D>(dOs, LD, og, p.o_st, q0, BQ, tid, NTH);
+  const int n_kt = p.causal ? (q0 + BQ) / BK : p.T / BK;
+  const int wg = warpgroup_idx();
 
-  const float scale = 1.0f / sqrtf((float)D);
-  const int row0 = q0 + wr + g, row1 = row0 + 8;
-  const long long rb = (long long)bh * p.T;
-  const float lse[2] = {p.lse[rb + row0], p.lse[rb + row1]};
-  const float dlt[2] = {p.delta[rb + row0], p.delta[rb + row1]};
-  float dq[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
-
-  const int n_kt = p.causal ? (q0 + BQ - 1) / BK + 1 : p.T / BK;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile is consumed
-    copy_rows<D>(Ks, LD, kg, p.k_st, k0, BK, tid, NTH);
-    copy_rows<D>(Vs, LD, vg, p.v_st, k0, BK, tid, NTH);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T (f32)
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      uint32_t a[4], ad[4], b[2];
-      load_a(Qs, LD, wr, kc * 16, g, c, a);
-      load_a(dOs, LD, wr, kc * 16, g, c, ad);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        b_rows(Ks, LD, j * 8, kc * 16, g, c, b);
-        mma_bf16(s[j], a, b);
-        b_rows(Vs, LD, j * 8, kc * 16, g, c, b);
-        mma_bf16(dp[j], ad, b);
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
     }
-
-    // dS = P o (dP - Delta) with P = exp(scale S - lse), masked p exactly
-    // 0 (rows row0: e = 0, 1; row1: e = 2, 3), kept in s
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool masked = p.causal && k0 + j * 8 + 2 * c + (e & 1) >
-                                            (e < 2 ? row0 : row1);
-        const float pv =
-            masked ? 0.f : expf(s[j][e] * scale - lse[e >> 1]);
-        s[j][e] = pv * (dp[j][e] - dlt[e >> 1]);
-      }
-    }
-
-    // dQ += dS K, dS as hi + lo bf16, K read down its columns
-#pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      uint32_t ah[4], al[4], b[2];
-      acc_to_a(s[2 * kc], s[2 * kc + 1], ah, al);
-#pragma unroll
-      for (int j = 0; j < DT; ++j) {
-        b_cols(Ku, LD, kc * 16, wc + j * 8, g, c, b);
-        mma_bf16(dq[j], ah, b);
-        mma_bf16(dq[j], al, b);
-      }
-    }
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  __nv_bfloat16* dqg = static_cast<__nv_bfloat16*>(p.dq);
-  const long long ob0 = out_row(p, bi, hi, row0, D);
-  const long long ob1 = out_row(p, bi, hi, row1, D);
+  if (wg == 2) {
+    // ------------------------------------------------------- producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      mbar_arrive_expect_tx(q_full, 2 * Tile::Q_BYTES);
+      for (int pn = 0; pn < NP; ++pn) {
+        tma_load_4d(Qs + pn * BQ * 128, &tm_q, q_full, 64 * pn, hi, q0, bi);
+        tma_load_4d(dOs + pn * BQ * 128, &tm_do, q_full, 64 * pn, hi, q0, bi);
+      }
+      Ring<NS> ring;
+      for (int kt = 0; kt < n_kt; ++kt, ring.advance()) {
+        mbar_wait(&empty[ring.stage], ring.parity() ^ 1u);
+        uint64_t* bar = &full[ring.stage];
+        mbar_arrive_expect_tx(bar, 2 * Tile::KV_BYTES);
+        unsigned char* ks = Ks + ring.stage * Tile::KV_BYTES;
+        unsigned char* vs = Vs + ring.stage * Tile::KV_BYTES;
+        for (int pn = 0; pn < NP; ++pn) {
+          tma_load_4d(ks + pn * BK * 128, &tm_k, bar, 64 * pn, hi, kt * BK,
+                      bi);
+          tma_load_4d(vs + pn * BK * 128, &tm_v, bar, 64 * pn, hi, kt * BK,
+                      bi);
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------------- consumers
+    setmaxnreg_inc<232>();
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane >> 2, c = lane & 3;
+    const int tr0 = 64 * wg + 16 * warp + g;  // tile rows tr0 and tr0 + 8
+    const int row0 = q0 + tr0, row1 = row0 + 8;
+    const int first_row = q0 + 64 * wg, last_row = first_row + 63;
+    const float scale = 1.0f / sqrtf((float)D);
+    const float sl2 = scale * kLog2e;
+    const long long rb = (long long)bh * p.T;
+    const float ll[2] = {p.lse[rb + row0] * kLog2e,
+                         p.lse[rb + row1] * kLog2e};
+
+    // Delta = rowsum(dO o O) of rows row0 and row1 in f32. A quad shares
+    // a row; thread c takes the 16-byte chunks c and c + 4 of every
+    // 64-column panel. O comes by plain loads, issued before any wait so
+    // they overlap the TMA of Q and dO; dO from its staged tile, where
+    // chunk j of tile row tr sits at chunk j ^ (tr % 8) = j ^ g.
+    const __nv_bfloat16* og =
+        head<__nv_bfloat16>(p.out, p.out_sb, p.out_sh, bi, hi);
+    uint4 ov[2][NP][2];
 #pragma unroll
-  for (int j = 0; j < DT; ++j) {
-    const int col = wc + j * 8 + 2 * c;
-    *reinterpret_cast<uint32_t*>(&dqg[ob0 + col]) =
-        pack_bf16(__float2bfloat16_rn(dq[j][0] * scale),
-                  __float2bfloat16_rn(dq[j][1] * scale));
-    *reinterpret_cast<uint32_t*>(&dqg[ob1 + col]) =
-        pack_bf16(__float2bfloat16_rn(dq[j][2] * scale),
-                  __float2bfloat16_rn(dq[j][3] * scale));
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          ov[r][pn][u] = *reinterpret_cast<const uint4*>(
+              og + (long long)(r ? row1 : row0) * p.out_st + 64 * pn +
+              8 * (c + 4 * u));
+    mbar_wait(q_full, 0);
+    float dlt[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const unsigned char* row = dOs + (tr0 + 8 * r) * 128;
+      float acc = 0.f;
+#pragma unroll
+      for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          acc = dot_bf16x8(*reinterpret_cast<const uint4*>(
+                               row + pn * BQ * 128 + ((c + 4 * u) ^ g) * 16),
+                           ov[r][pn][u], acc);
+      dlt[r] = quad_sum(acc);
+    }
+    if (c == 0) {
+      p.delta[rb + row0] = dlt[0];
+      p.delta[rb + row1] = dlt[1];
+    }
+
+    float dq[D / 128][64], s[BK / 2], dp[BK / 2];
+#pragma unroll
+    for (int h = 0; h < D / 128; ++h)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) dq[h][i] = 0.f;
+    const uint32_t da_q = desc_kmajor(Qs + wg * 64 * 128);
+    const uint32_t da_do = desc_kmajor(dOs + wg * 64 * 128);
+
+    Ring<NS> ring;
+    for (int kt = 0; kt < n_kt; ++kt, ring.advance()) {
+      const int k0 = kt * BK;
+      mbar_wait(&full[ring.stage], ring.parity());
+      if (!p.causal || k0 <= last_row) {
+        unsigned char* ks = Ks + ring.stage * Tile::KV_BYTES;
+        unsigned char* vs = Vs + ring.stage * Tile::KV_BYTES;
+        const uint32_t db_k = desc_kmajor(ks), db_v = desc_kmajor(vs);
+
+        // S = Q K^T, then dP = dO V^T: d / 16 steps of 16 columns, 4 a
+        // 64-column panel; each accumulator's products are one commit
+        // group
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t a = (kk / 4) * BQ * 128 + (kk % 4) * 32;
+          const uint32_t b = (kk / 4) * BK * 128 + (kk % 4) * 32;
+          if (kk == 0)
+            wgmma_ss_first<0>(s, desc_add(da_q, a), desc_add(db_k, b));
+          else
+            wgmma_ss<0>(s, desc_add(da_q, a), desc_add(db_k, b));
+        }
+        wgmma_commit();
+        fence_regs(s);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t a = (kk / 4) * BQ * 128 + (kk % 4) * 32;
+          const uint32_t b = (kk / 4) * BK * 128 + (kk % 4) * 32;
+          if (kk == 0)
+            wgmma_ss_first<0>(dp, desc_add(da_do, a), desc_add(db_v, b));
+          else
+            wgmma_ss<0>(dp, desc_add(da_do, a), desc_add(db_v, b));
+        }
+        wgmma_commit();
+        fence_regs(dp);
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+
+        // dS = P o (dP - Delta) with P = exp2(S scale log2(e) - lse
+        // log2(e)), masked p exactly 0 (rows row0: e = 0, 1; row1: 2, 3),
+        // then its bf16 A fragments, the keys [16kc, 16kc + 16) at a time
+        const bool diag = p.causal && k0 + BK - 1 > first_row;
+        uint32_t ah[BK / 16][4], al[BK / 16][4];
+#pragma unroll
+        for (int kc = 0; kc < BK / 16; ++kc) {
+#pragma unroll
+          for (int i = 8 * kc; i < 8 * kc + 8; ++i) {
+            const int r = (i >> 1) & 1;
+            const bool masked =
+                diag && k0 + 8 * (i / 4) + 2 * c + (i & 1) > (r ? row1 : row0);
+            const float pv =
+                masked ? 0.f : exp2_approx(fmaf(s[i], sl2, -ll[r]));
+            s[i] = pv * (dp[i] - dlt[r]);
+          }
+          acc_to_a(&s[8 * kc], &s[8 * kc + 4], ah[kc], al[kc]);
+        }
+
+        // dQ += dS K: 16 keys a step (+2048 bytes down K's rows), 128
+        // output columns a product (two panels, BK * 128 bytes apart),
+        // K transposed by the descriptor; dS as hi + lo
+        const uint32_t db_kt = desc_mnmajor(ks, BK * 128);
+#pragma unroll
+        for (int h = 0; h < D / 128; ++h) {
+          fence_regs(dq[h]);
+          wgmma_fence();
+#pragma unroll
+          for (int kc = 0; kc < BK / 16; ++kc) {
+            const uint32_t b = desc_add(db_kt, h * 2 * BK * 128 + kc * 2048);
+            wgmma_rs<1>(dq[h], ah[kc], b);
+            wgmma_rs<1>(dq[h], al[kc], b);
+          }
+          wgmma_commit();
+          fence_regs(dq[h]);
+        }
+        wgmma_wait<0>();
+#pragma unroll
+        for (int h = 0; h < D / 128; ++h) fence_regs(dq[h]);
+      }
+      mbar_arrive(&empty[ring.stage]);
+    }
+
+    __nv_bfloat16* dqg = static_cast<__nv_bfloat16*>(p.dq);
+    const long long ob0 = out_row(p, bi, hi, row0, D);
+    const long long ob1 = out_row(p, bi, hi, row1, D);
+#pragma unroll
+    for (int h = 0; h < D / 128; ++h) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = 128 * h + 8 * j + 2 * c;
+        *reinterpret_cast<uint32_t*>(&dqg[ob0 + col]) =
+            pack_bf16(__float2bfloat16_rn(dq[h][4 * j] * scale),
+                      __float2bfloat16_rn(dq[h][4 * j + 1] * scale));
+        *reinterpret_cast<uint32_t*>(&dqg[ob1 + col]) =
+            pack_bf16(__float2bfloat16_rn(dq[h][4 * j + 2] * scale),
+                      __float2bfloat16_rn(dq[h][4 * j + 3] * scale));
+      }
+    }
   }
 }
 
-// dK/dV: 384 threads, warpgroups 0 and 1 consume, warpgroup 2 produces.
-constexpr int kDkvThreads = 384;
+template <int D>
+cudaError_t launch_dq_bf16(const BwdParams& p, cudaStream_t stream) {
+  using Tile = DqTile<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = map_bthd(&tq, p.q, p.B, p.T, p.H, D, p.q_sb, p.q_st,
+                             p.q_sh, kDqRows);
+  if (err == cudaSuccess)
+    err = map_bthd(&tk, p.k, p.B, p.T, p.H, D, p.k_sb, p.k_st, p.k_sh,
+                   Tile::BK);
+  if (err == cudaSuccess)
+    err = map_bthd(&tv, p.v, p.B, p.T, p.H, D, p.v_sb, p.v_st, p.v_sh,
+                   Tile::BK);
+  if (err == cudaSuccess)
+    err = map_bthd(&tdo, p.dout, p.B, p.T, p.H, D, p.o_sb, p.o_st, p.o_sh,
+                   kDqRows);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Tile::SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid(p.T / kDqRows, p.B * p.H);
+  flash_bwd_dq_bf16_kernel<D><<<grid, kBwdThreads, Tile::SMEM, stream>>>(
+      tq, tk, tv, tdo, p);
+  return cudaGetLastError();
+}
+
+// dK/dV: a block owns 128 k rows at d = 128 and 64 at d = 256.
 constexpr int kDkvQRows = 64;  // q rows of a stage
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct DkvTile {
@@ -254,7 +432,7 @@ struct DkvTile {
 };
 
 template <int D>
-__global__ void __launch_bounds__(kDkvThreads, 1)
+__global__ void __launch_bounds__(kBwdThreads, 1)
     flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                               const __grid_constant__ CUtensorMap tm_k,
                               const __grid_constant__ CUtensorMap tm_v,
@@ -480,7 +658,7 @@ cudaError_t launch_dkv_bf16(const BwdParams& p, cudaStream_t stream) {
                              Tile::SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid(p.T / Tile::BK, p.B * p.H);
-  flash_bwd_dkv_bf16_kernel<D><<<grid, kDkvThreads, Tile::SMEM, stream>>>(
+  flash_bwd_dkv_bf16_kernel<D><<<grid, kBwdThreads, Tile::SMEM, stream>>>(
       tq, tk, tv, tdo, tl, td, p);
   return cudaGetLastError();
 }
@@ -520,10 +698,18 @@ __global__ void __launch_bounds__(kSimtThreads)
   const float* og = head<float>(p.dout, p.o_sb, p.o_sh, bi, hi);
   copy_rows<D>(Qs, LQ, qg, p.q_st, q0, BQ, tid, kSimtThreads);
   copy_rows<D>(dOs, LQ, og, p.o_st, q0, BQ, tid, kSimtThreads);
+  __syncthreads();
 
+  // Delta = rowsum(dO o O) of this row, a quad of threads sharing it
+  const float* outg = head<float>(p.out, p.out_sb, p.out_sh, bi, hi) +
+                      (long long)row * p.out_st;
+  float part = 0.f;
+  for (int j = c; j < D; j += 4) part = fmaf(dOs[r * LQ + j], outg[j], part);
+  const float dlt = quad_sum(part);
   const float scale = 1.0f / sqrtf((float)D);
   const long long rb = (long long)bh * p.T;
-  const float lse = p.lse[rb + row], dlt = p.delta[rb + row];
+  if (c == 0) p.delta[rb + row] = dlt;
+  const float lse = p.lse[rb + row];
   float dq[NO];
 #pragma unroll
   for (int j = 0; j < NO; ++j) dq[j] = 0.f;
@@ -670,15 +856,15 @@ cudaError_t launch(Kernel kernel, int rows, int threads, int smem,
 }
 
 BwdParams make_params(const void* q, const void* k, const void* v,
-                      const void* dout, const void* lse, const void* delta,
-                      int B, int T, int H, int causal, const long long* st) {
+                      const void* dout, const void* lse, void* delta, int B,
+                      int T, int H, int causal, const long long* st) {
   BwdParams p{};
   p.q = q;
   p.k = k;
   p.v = v;
   p.dout = dout;
   p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
+  p.delta = static_cast<float*>(delta);
   p.q_sb = st[0], p.q_st = st[1], p.q_sh = st[2];
   p.k_sb = st[3], p.k_st = st[4], p.k_sh = st[5];
   p.v_sb = st[6], p.v_st = st[7], p.v_sh = st[8];
@@ -690,28 +876,29 @@ BwdParams make_params(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q/k/v/dout: [B, T, H, D] with the given (batch, seq, head) strides in
-// elements (q, k, v, dout in that order) and unit stride over D; lse and
-// delta: [B, H, T] f32 contiguous; outputs: [B, T, H, D] contiguous in the
-// input dtype. dtype: 0 = f32, 1 = bf16. The caller guarantees D in
-// {128, 256}, T % 128 == 0, 16-byte aligned starts and (batch, seq, head)
-// strides that are multiples of 16 bytes. Each returns
+// q/k/v/dout (and out, for dQ): [B, T, H, D] with the given (batch, seq,
+// head) strides in elements (in that order, 3 a tensor) and unit stride
+// over D; lse and delta: [B, H, T] f32 contiguous; dq/dk/dv: [B, T, H, D]
+// contiguous in the input dtype. dtype: 0 = f32, 1 = bf16. The caller
+// guarantees D in {128, 256}, T % 128 == 0, 16-byte aligned starts and
+// (batch, seq, head) strides that are multiples of 16 bytes. Each returns
 // cudaGetLastError() after its launch (0 on success).
+//
+// dQ, and Delta = rowsum(dO o O) into `delta` for the dK/dV kernel.
 extern "C" int vtp_flash_bwd_dq(const void* q, const void* k, const void* v,
-                                const void* dout, const void* lse,
-                                const void* delta, void* dq, int B, int T,
-                                int H, int D, int dtype, int causal,
-                                const long long* strides, void* stream) {
+                                const void* dout, const void* out,
+                                const void* lse, void* delta, void* dq,
+                                int B, int T, int H, int D, int dtype,
+                                int causal, const long long* strides,
+                                void* stream) {
   BwdParams p = make_params(q, k, v, dout, lse, delta, B, T, H, causal,
                             strides);
+  p.out = out;
+  p.out_sb = strides[12], p.out_st = strides[13], p.out_sh = strides[14];
   p.dq = dq;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && D == 128)
-    return launch(flash_bwd_dq_bf16_kernel<128, 64, 1>, kMmaTile, 128,
-                  dq_bf16_smem<128, 64>(), p, s);
-  if (dtype == 1 && D == 256)
-    return launch(flash_bwd_dq_bf16_kernel<256, 64, 2>, kMmaTile, 256,
-                  dq_bf16_smem<256, 64>(), p, s);
+  if (dtype == 1 && D == 128) return launch_dq_bf16<128>(p, s);
+  if (dtype == 1 && D == 256) return launch_dq_bf16<256>(p, s);
   if (dtype == 0 && D == 128)
     return launch(flash_bwd_dq_f32_kernel<128>, kSimtRows, kSimtThreads,
                   dq_f32_smem<128>(), p, s);
@@ -721,9 +908,10 @@ extern "C" int vtp_flash_bwd_dq(const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
+// dK and dV, on the Delta that dQ wrote.
 extern "C" int vtp_flash_bwd_dkv(const void* q, const void* k,
                                  const void* v, const void* dout,
-                                 const void* lse, const void* delta,
+                                 const void* lse, void* delta,
                                  void* dk, void* dv, int B, int T, int H,
                                  int D, int dtype, int causal,
                                  const long long* strides, void* stream) {

@@ -24,7 +24,7 @@
 // warpgroup owns rows 16w .. 16w + 15; lane = 4g + c holds, for each
 // 8-column block j, d[4j + 0, 1] = row 16w + g, columns 8j + 2c, + 1 and
 // d[4j + 2, 3] = row 16w + g + 8, the same columns. The A fragment of
-// a register-A product has the mma.sync m16n8k16 layout, so the
+// a register-A product has the mma.sync m16n8k16 A layout, so the
 // accumulator blocks 2kc and 2kc + 1 are the A operand of reduction
 // columns [16kc, 16kc + 16) of the next product (acc_to_a in
 // mma_common.cuh).
@@ -194,6 +194,44 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 // descriptors' low words. TB is the transpose bit of B: 0 for a K-major
 // B, 1 for an MN-major one. The _first forms overwrite d (its old values
 // are not read, so they need not stay live), the others add to it.
+// D = A B, m64n32k16; A [64 x 16] and B from shared memory
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_first(float (&d)[16], uint32_t da,
+                                              uint32_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 da, db;\n"
+      "mov.b64 da, {%16, %18};\nmov.b64 db, {%17, %18};\n"
+      "setp.ne.b32 p, %19, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, da, db, p, 1, 1, 0, %20;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15])
+      : "r"(da), "r"(db), "r"(kDescHi), "r"(0), "n"(TB));
+}
+
+// D += A B, m64n32k16; A [64 x 16] and B from shared memory
+template <int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint32_t da,
+                                        uint32_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 da, db;\n"
+      "mov.b64 da, {%16, %18};\nmov.b64 db, {%17, %18};\n"
+      "setp.ne.b32 p, %19, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, da, db, p, 1, 1, 0, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(da), "r"(db), "r"(kDescHi), "r"(1), "n"(TB));
+}
+
 // D = A B, m64n64k16; A [64 x 16] and B from shared memory
 template <int TB>
 __device__ __forceinline__ void wgmma_ss_first(float (&d)[32], uint32_t da,

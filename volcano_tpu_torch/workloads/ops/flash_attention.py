@@ -8,7 +8,8 @@ the reference's custom VJP.  Its forward is `flash_fwd` and its backward
 `flash_bwd`.  On a CUDA tensor these launch the hand-written kernels
 (`volcano_tpu_torch/csrc/flash_fwd.cu`, `flash_bwd.cu`); on a CPU tensor
 they run their plain PyTorch versions, `flash_fwd_plain` and
-`flash_bwd_plain`.  There is no fallback from a kernel: a CUDA tensor
+`flash_bwd_plain` (`flash_bwd_dq_plain` is the dQ kernel's own, with
+the Delta it writes).  There is no fallback from a kernel: a CUDA tensor
 the kernel does not take, a failed build or a failed launch raises.
 
 The block sizes (and the FLASH_BLOCK / FLASH_BLOCK_BWD overrides) decide
@@ -103,6 +104,28 @@ def flash_fwd_plain(q, k, v, causal: bool = True):
     return out, lse
 
 
+def _plain_bwd_terms(q, k, v, out, lse, do, causal: bool):
+    """The f32 terms both backward kernels share, in one pass: q, k and
+    do as [b, h, t, d] f32, scale, Delta = rowsum(dO * O) [b, h, t],
+    P = exp(S - lse) with masked p exactly 0, and dS = P * (dP - Delta)
+    with dP = dO V^T ([b, h, t, t])."""
+    d = q.shape[-1]
+    qf, kf, vf, of, dof = (x.float().transpose(1, 2)
+                           for x in (q, k, v, out, do))     # b,h,t,d
+    scale = torch.rsqrt(torch.tensor(float(d), device=q.device))
+    delta = (dof * of).sum(dim=-1)
+    s = (qf @ kf.transpose(-1, -2)) * scale
+    if causal:
+        t = q.shape[1]
+        mask = torch.tril(torch.ones((t, t), dtype=torch.bool,
+                                     device=q.device))
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    p = torch.where(s <= NEG_INF / 2, 0.0, p)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None])
+    return qf, kf, dof, scale, delta, p, ds
+
+
 def flash_bwd_plain(q, k, v, out, lse, do, causal: bool = True):
     """The backward kernels' function in plain PyTorch: q/k/v/out/do
     [b, t, h, d], lse [b, h, t] f32 as `flash_fwd` writes it ->
@@ -113,24 +136,26 @@ def flash_bwd_plain(q, k, v, out, lse, do, causal: bool = True):
     rowsum(dO * O), P = exp(S - lse) with masked p exactly 0,
     dP = dO V^T, dS = P * (dP - Delta), dQ = scale dS K,
     dK = scale dS^T Q and dV = P^T dO."""
-    d = q.shape[-1]
-    qf, kf, vf, of, dof = (x.float().transpose(1, 2)
-                           for x in (q, k, v, out, do))     # b,h,t,d
-    scale = torch.rsqrt(torch.tensor(float(d), device=q.device))
-    delta = (dof * of).sum(dim=-1, keepdim=True)
-    s = (qf @ kf.transpose(-1, -2)) * scale
-    if causal:
-        t = q.shape[1]
-        mask = torch.tril(torch.ones((t, t), dtype=torch.bool,
-                                     device=q.device))
-        s = torch.where(mask, s, NEG_INF)
-    p = torch.exp(s - lse[..., None])
-    p = torch.where(s <= NEG_INF / 2, 0.0, p)
-    ds = p * (dof @ vf.transpose(-1, -2) - delta)
+    qf, kf, dof, scale, _, p, ds = _plain_bwd_terms(q, k, v, out, lse, do,
+                                                    causal)
     dq = (ds @ kf) * scale
     dk = (ds.transpose(-1, -2) @ qf) * scale
     dv = p.transpose(-1, -2) @ dof
     return tuple(x.transpose(1, 2).to(q.dtype) for x in (dq, dk, dv))
+
+
+def flash_bwd_dq_plain(q, k, v, out, do, lse, causal: bool = True):
+    """The dQ kernel's function in plain PyTorch: q/k/v/out/do
+    [b, t, h, d], lse [b, h, t] f32 -> (dq [b, t, h, d] in q's dtype,
+    delta [b, h, t] f32 contiguous).
+
+    The f32 arithmetic of the reference's `_bwd_dq_kernel` in one pass,
+    dQ = scale dS K, with Delta = rowsum(dO * O) as `_flash_bh_bwd`
+    computes it."""
+    _, kf, _, scale, delta, _, ds = _plain_bwd_terms(q, k, v, out, lse, do,
+                                                     causal)
+    dq = (ds @ kf) * scale
+    return dq.transpose(1, 2).to(q.dtype), delta.contiguous()
 
 
 def _kernel_lib():
@@ -140,7 +165,7 @@ def _kernel_lib():
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.vtp_flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i] + \
             [i64] * 9 + [p]
-        lib.vtp_flash_bwd_dq.argtypes = [p] * 7 + [i] * 6 + [p, p]
+        lib.vtp_flash_bwd_dq.argtypes = [p] * 8 + [i] * 6 + [p, p]
         lib.vtp_flash_bwd_dkv.argtypes = [p] * 8 + [i] * 6 + [p, p]
         for fn in (lib.vtp_flash_fwd, lib.vtp_flash_bwd_dq,
                    lib.vtp_flash_bwd_dkv):
@@ -244,36 +269,45 @@ def flash_fwd(q, k, v, causal: bool = True):
 flash_fwd.launches = 0
 
 
-def _bwd_args(q, k, v, do, lse, delta, causal: bool):
-    """The arguments both backward kernels share, after their checks."""
-    _check_kernel_inputs("flash_bwd", q=q, k=k, v=v, do=do)
-    _check_rows("flash_bwd", q, lse=lse, delta=delta)
+def _bwd_args(kernel: str, tensors: dict, rows: dict, causal: bool):
+    """The arguments both backward kernels share, after their checks:
+    the pointers of the [b, t, h, d] `tensors` (q first) and then of the
+    f32 [b, h, t] `rows`, in order; the dims; the tensors' strides."""
+    _check_kernel_inputs(kernel, **tensors)
+    q = tensors["q"]
+    _check_rows(kernel, q, **rows)
     b, t, h, d = q.shape
-    strides = (ctypes.c_longlong * 12)(
-        *(s for x in (q, k, v, do) for s in x.stride()[:3]))
-    return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr()),
+    strides = (ctypes.c_longlong * (3 * len(tensors)))(
+        *(s for x in tensors.values() for s in x.stride()[:3]))
+    return ([x.data_ptr() for x in (*tensors.values(), *rows.values())],
             (b, t, h, d, _DTYPE_CODES[q.dtype], int(causal)), strides)
 
 
-def _launch_dq(q, k, v, do, lse, delta, causal: bool):
-    """Launch the dQ kernel on PyTorch's current stream -> dq; raises as
-    `_launch` does."""
-    ins, dims, strides = _bwd_args(q, k, v, do, lse, delta, causal)
+def _launch_dq(q, k, v, out, do, lse, causal: bool):
+    """Launch the dQ kernel on PyTorch's current stream -> (dq, delta):
+    dq [b, t, h, d] and Delta = rowsum(dO * O) [b, h, t] f32, which the
+    kernel computes for the dK/dV kernel; raises as `_launch` does."""
+    ins, dims, strides = _bwd_args(
+        "flash_bwd_dq", dict(q=q, k=k, v=v, do=do, out=out),
+        dict(lse=lse), causal)
+    b, t, h, _ = q.shape
     lib = _kernel_lib()
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
-        rc = lib.vtp_flash_bwd_dq(*ins, dq.data_ptr(), *dims, strides,
-                                  _stream(q))
+        rc = lib.vtp_flash_bwd_dq(*ins, delta.data_ptr(), dq.data_ptr(),
+                                  *dims, strides, _stream(q))
     _raise_on(lib, rc, "flash_bwd_dq")
     flash_bwd.launches_dq += 1
-    return dq
+    return dq, delta
 
 
 def _launch_dkv(q, k, v, do, lse, delta, causal: bool):
     """Launch the dK/dV kernel on PyTorch's current stream -> (dk, dv);
     raises as `_launch` does."""
-    ins, dims, strides = _bwd_args(q, k, v, do, lse, delta, causal)
+    ins, dims, strides = _bwd_args(
+        "flash_bwd_dkv", dict(q=q, k=k, v=v, do=do),
+        dict(lse=lse, delta=delta), causal)
     lib = _kernel_lib()
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -286,21 +320,21 @@ def _launch_dkv(q, k, v, do, lse, delta, causal: bool):
 
 
 def bwd_delta(out, do):
-    """Delta = rowsum(dO * O) in f32 as [b, h, t] contiguous: the
-    reference's jnp glue (`_flash_bh_bwd`), a torch op here too."""
+    """Delta = rowsum(dO * O) in f32 as [b, h, t] contiguous, the
+    reference's jnp glue (`_flash_bh_bwd`): the plain version of the
+    Delta that the dQ kernel writes."""
     return (do.float() * out.float()).sum(dim=-1).transpose(1, 2) \
         .contiguous()
 
 
 def flash_bwd(q, k, v, out, lse, do, causal: bool = True):
-    """-> (dq, dk, dv) [b, t, h, d] in q's dtype: on a CUDA tensor Delta
-    as a torch op, then the dQ kernel and the dK/dV kernel; on a CPU
-    tensor `flash_bwd_plain`.  `flash_bwd.launches_dq` and
-    `flash_bwd.launches_dkv` count kernel launches."""
+    """-> (dq, dk, dv) [b, t, h, d] in q's dtype: on a CUDA tensor the dQ
+    kernel, which also writes Delta, then the dK/dV kernel on that
+    Delta; on a CPU tensor `flash_bwd_plain`.  `flash_bwd.launches_dq`
+    and `flash_bwd.launches_dkv` count kernel launches."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, out, lse, do, causal)
-    delta = bwd_delta(out, do)
-    dq = _launch_dq(q, k, v, do, lse, delta, causal)
+    dq, delta = _launch_dq(q, k, v, out, do, lse, causal)
     dk, dv = _launch_dkv(q, k, v, do, lse, delta, causal)
     return dq, dk, dv
 

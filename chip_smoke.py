@@ -47,7 +47,7 @@ SLICE_REQUESTS = 40
 ATOL_F32 = 1e-4   # f32: the kernel and the plain version differ only in sum order
 # bf16 out: both sides compute in f32 and round once to bf16, and one bf16
 # step is 2^-8 of the value, so a sum-order difference can move a value
-# by one step; the forward and dK/dV kernels also round P (and dS) to
+# by one step; the forward, dQ and dK/dV kernels also round P (and dS) to
 # bf16 before their second products. 1e-2 absolute plus 1e-2 relative
 # covers both (the worst case measured uses three quarters of it).
 TOL_BF16 = 1e-2

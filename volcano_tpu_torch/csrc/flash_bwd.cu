@@ -29,10 +29,11 @@
 // TPU's sequential grid axis becomes the tile loop inside the block.
 // Causal tiles past the diagonal are skipped and the heaviest tiles start
 // first: the last q tiles for dQ, the first k tiles for dK/dV. P and dS
-// are f32; dK/dV feeds P and dS to its products as one bf16 term each,
-// dQ feeds dS as two (hi + lo, 16 significant bits); both variants were
-// held to the same bf16 tolerance at every case of chip_smoke.py
-// (errors and times: PERF.md).
+// are f32 and enter the second products as one bf16 term each: a hi +
+// lo split (16 significant bits) also held the bf16 tolerance at every
+// case of chip_smoke.py, and one term uses at most about half of it and
+// saves the lo products (dK/dV 37%, dQ 26% of the kernel's time; both
+// variants' errors and times: PERF.md).
 //
 // The bf16 kernels (wgmma + TMA, warp-specialised):
 //  * A block of 384 threads: two consumer warpgroups and one producer
@@ -326,10 +327,10 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         fence_regs(dp);
 
         // dS = P o (dP - Delta) with P = exp2(S scale log2(e) - lse
-        // log2(e)), masked p exactly 0 (rows row0: e = 0, 1; row1: 2, 3),
+        // log2(e)), masked p exactly 0 (row0 at i % 4 = 0, 1, row1 at 2, 3),
         // then its bf16 A fragments, the keys [16kc, 16kc + 16) at a time
         const bool diag = p.causal && k0 + BK - 1 > first_row;
-        uint32_t ah[BK / 16][4], al[BK / 16][4];
+        uint32_t ad[BK / 16][4];
 #pragma unroll
         for (int kc = 0; kc < BK / 16; ++kc) {
 #pragma unroll
@@ -341,12 +342,12 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
                 masked ? 0.f : exp2_approx(fmaf(s[i], sl2, -ll[r]));
             s[i] = pv * (dp[i] - dlt[r]);
           }
-          acc_to_a(&s[8 * kc], &s[8 * kc + 4], ah[kc], al[kc]);
+          acc_to_a(&s[8 * kc], &s[8 * kc + 4], ad[kc]);
         }
 
         // dQ += dS K: 16 keys a step (+2048 bytes down K's rows), 128
         // output columns a product (two panels, BK * 128 bytes apart),
-        // K transposed by the descriptor; dS as hi + lo
+        // K transposed by the descriptor
         const uint32_t db_kt = desc_mnmajor(ks, BK * 128);
 #pragma unroll
         for (int h = 0; h < D / 128; ++h) {
@@ -354,9 +355,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
           wgmma_fence();
 #pragma unroll
           for (int kc = 0; kc < BK / 16; ++kc) {
-            const uint32_t b = desc_add(db_kt, h * 2 * BK * 128 + kc * 2048);
-            wgmma_rs<1>(dq[h], ah[kc], b);
-            wgmma_rs<1>(dq[h], al[kc], b);
+            wgmma_rs<1>(dq[h], ad[kc],
+                        desc_add(db_kt, h * 2 * BK * 128 + kc * 2048));
           }
           wgmma_commit();
           fence_regs(dq[h]);

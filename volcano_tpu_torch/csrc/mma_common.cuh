@@ -25,40 +25,20 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
          ((uint32_t)__bfloat16_as_ushort(hi) << 16);
 }
 
-// x0, x1 -> (hi, lo) bf16 pairs with x ~= hi + lo
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  __nv_bfloat16 h0 = __float2bfloat16_rn(x0);
-  __nv_bfloat16 h1 = __float2bfloat16_rn(x1);
-  __nv_bfloat16 l0 = __float2bfloat16_rn(x0 - __bfloat162float(h0));
-  __nv_bfloat16 l1 = __float2bfloat16_rn(x1 - __bfloat162float(h1));
-  hi = pack_bf16(h0, h1);
-  lo = pack_bf16(l0, l1);
-}
-
 // Two f32 values as one bf16x2 register, each rounded to nearest
 __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// The A fragment (one bf16 term) of reduction columns [16kc, 16kc + 16)
-// taken from the f32 accumulator tiles acc[2kc] and acc[2kc + 1].
+// The bf16 A fragment of reduction columns [16kc, 16kc + 16) taken from
+// the f32 accumulator blocks acc[2kc] and acc[2kc + 1].
 __device__ __forceinline__ void acc_to_a(const float* t0, const float* t1,
                                          uint32_t* a) {
   a[0] = bf16x2(t0[0], t0[1]);
   a[1] = bf16x2(t0[2], t0[3]);
   a[2] = bf16x2(t1[0], t1[1]);
   a[3] = bf16x2(t1[2], t1[3]);
-}
-
-// The same as hi and lo terms (x ~= hi + lo).
-__device__ __forceinline__ void acc_to_a(const float* t0, const float* t1,
-                                         uint32_t* ah, uint32_t* al) {
-  split_bf16(t0[0], t0[1], ah[0], al[0]);
-  split_bf16(t0[2], t0[3], ah[1], al[1]);
-  split_bf16(t1[0], t1[1], ah[2], al[2]);
-  split_bf16(t1[2], t1[3], ah[3], al[3]);
 }
 
 __device__ __forceinline__ float quad_max(float x) {

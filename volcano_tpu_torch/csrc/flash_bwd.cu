@@ -32,7 +32,7 @@
 // are f32 and enter the second products as one bf16 term each: a hi +
 // lo split (16 significant bits) also held the bf16 tolerance at every
 // case of chip_smoke.py, and one term uses at most about half of it and
-// saves the lo products (dK/dV 37%, dQ 26% of the kernel's time; both
+// saves the lo products (dK/dV 37%, dQ 25% of the kernel's time; both
 // variants' errors and times: PERF.md).
 //
 // The bf16 kernels (wgmma + TMA, warp-specialised):

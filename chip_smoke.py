@@ -19,12 +19,20 @@ counted, then the replica entry point `serve.run`; (8) the training
 slice: six steps of the flagship d2048-L8 model in bf16 at batch
 8 x 2048 through `train.make_train_step`, with every kernel's launches
 counted, the step time, tokens/s and model FLOP/s, a profile of one
-step, and the remat check.
+step, and the remat check; (9) the scheduled worker as a vcjob's
+container runs it, `python -m volcano_tpu_torch.workloads.worker` on
+nccl: a fresh run, a resume from a step-5 checkpoint, and the refusal
+to resume from a stamp newer than every checkpoint; (10) the same
+flagship training at full width through the data-parallel mesh step
+over a one-rank nccl group, checkpointed at step 3 (8.0 GB of f32
+params, mu and nu through `torch.distributed.checkpoint`), restored into
+fresh state and continued: losses, launches, bit-identical state, save
+and restore rates, and the mesh step's cost over the plain step.
 
 Any failure raises, so the exit code is not 0.  Without a GPU it exits
 non-zero before printing any result.  The last line is the device
 record `{"ok": true, "device": {...}}`; the line before it holds the
-kernels' numbers.
+kernels' numbers, and the one before that the worker's and the resume's.
 """
 
 from __future__ import annotations
@@ -32,9 +40,13 @@ from __future__ import annotations
 import importlib
 import json
 import math
+import os
 import re
+import shutil
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -61,6 +73,10 @@ GRAD_PARITY_SHARE = 1e-3
 REMAT_SHARE = 1e-5
 TRAIN_STEPS = 6
 TRAIN_BATCH = 8
+RESUME_STEPS = 5      # the mesh run; checkpointed after step SAVE_STEP
+SAVE_STEP = 3
+WORKER_TIMEOUT_S = 300
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def log(msg: str) -> None:
@@ -659,6 +675,7 @@ def phase_train(model, train, fa, flop_peak):
     flops, n_params = model_flops(cfg, params, TRAIN_BATCH, t)
     tflops = flops / med_ms / 1e9
     res = dict(launches=launches, steps=TRAIN_STEPS, step_ms=med_ms,
+               losses=losses,
                tokens_per_s=TRAIN_BATCH * t / med_ms * 1e3,
                model_tflops=tflops, mfu_bf16_dense=tflops * 1e12 / flop_peak,
                params_m=n_params / 1e6, peak_gb=peak_gb)
@@ -704,10 +721,263 @@ def phase_remat(model, train, fa):
     return share
 
 
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def launch_worker(extra):
+    """`python -m volcano_tpu_torch.workloads.worker` as one process of a
+    one-process job, on the card (WORKER_DEVICE unset): (exit code,
+    stdout, stderr, wall seconds)."""
+    env = {k: v for k, v in os.environ.items() if k != "WORKER_DEVICE"}
+    env.update(TPU_WORKER_ID="0", NUM_PROCESSES="1", WORKER_STEPS="3",
+               COORDINATOR_ADDRESS=f"127.0.0.1:{free_port()}",
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (REPO, env.get("PYTHONPATH")) if p))
+    env.update({k: str(v) for k, v in extra.items()})
+    t0 = time.monotonic()
+    res = subprocess.run(
+        [sys.executable, "-m", "volcano_tpu_torch.workloads.worker"],
+        env=env, cwd=REPO, capture_output=True, text=True,
+        timeout=WORKER_TIMEOUT_S)
+    return res.returncode, res.stdout, res.stderr, time.monotonic() - t0
+
+
+def worker_result(rc, out, err):
+    if rc != 0:
+        raise AssertionError(f"worker exited {rc}:\n{err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def phase_worker(model, train, checkpoint, worker):
+    """The worker as the scheduler launches it, on nccl: a fresh run of 3
+    steps; a resume from a step-5 checkpoint of its state (start_step 5,
+    progress step 8); and, stamped at step 7, the refusal to rewind."""
+    keys = {"process_id", "num_processes", "device_count", "collective_sum",
+            "loss", "start_step", "slice_id", "num_slices"}
+    tmp = tempfile.mkdtemp(prefix="vtp-worker-")
+    try:
+        progress = os.path.join(tmp, "progress", "vtp-w0.json")
+        rc, out, err, fresh_s = launch_worker({"VTP_PROGRESS_FILE": progress})
+        fresh = worker_result(rc, out, err)
+        with open(progress) as f:
+            record = json.load(f)
+        log(f"[worker] fresh run {fresh_s:.3f} s: {json.dumps(fresh)}; "
+            f"progress {json.dumps(record)}")
+        if set(fresh) != keys or not (
+                fresh["collective_sum"] == fresh["device_count"] == 1) or \
+                not math.isfinite(fresh["loss"]) or \
+                (record["step"], record["examples"]) != (3, 3.0):
+            raise AssertionError("the fresh worker run is off")
+
+        cfg = worker.worker_config()
+        params = model.init_params(cfg, torch.Generator().manual_seed(0),
+                                   "cuda")
+        ckpt = os.path.join(tmp, "ckpt")
+        checkpoint.save(ckpt, 5, params, train.make_optimizer().init(params))
+        del params
+        rc, out, err, resume_s = launch_worker({
+            "VTP_PROGRESS_FILE": progress, "VTP_CHECKPOINT_DIR": ckpt,
+            "VTP_RESUME_STEP": 5})
+        resumed = worker_result(rc, out, err)
+        with open(progress) as f:
+            record = json.load(f)
+        log(f"[worker] resumed from step 5 in {resume_s:.3f} s: "
+            f"{json.dumps(resumed)}; progress {json.dumps(record)}")
+        # the checkpoint holds the worker's fresh state, so the loss too
+        # is the fresh run's
+        if resumed["start_step"] != 5 or record["step"] != 8 or \
+                resumed["loss"] != fresh["loss"]:
+            raise AssertionError("the resumed worker run is off")
+
+        rc, out, err, refuse_s = launch_worker({
+            "VTP_CHECKPOINT_DIR": ckpt, "VTP_RESUME_STEP": 7})
+        lost = [line for line in err.splitlines() if "lost data" in line]
+        log(f"[worker] stamped at step 7: exit {rc} in {refuse_s:.3f} s; "
+            f"{lost[-1] if lost else err[-500:]}")
+        if rc == 0 or not lost or out.strip():
+            raise AssertionError("the worker did not refuse to rewind")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(fresh_s=fresh_s, resume_s=resume_s, refuse_s=refuse_s,
+                loss=fresh["loss"])
+
+
+def state_leaves(params, state):
+    return [x for _, x in leaf_items(params)] + \
+        [x for key in ("mu", "nu") for _, x in leaf_items(state[key])]
+
+
+def time_reduction(train, mesh, params, batch, cfg):
+    """Device ms of the mean all-reduce of one step's gradients over the
+    data group, as the mesh step runs it (`train.all_reduce_mean`, flat
+    buckets) and, for comparison only, as one in-place all_reduce and
+    divide a leaf."""
+    import torch.distributed as dist
+    _, grads = train.value_and_grad(params, batch, cfg)
+    g_list = [g for _, g in leaf_items(grads)]
+    data = train.data_mesh(mesh)
+    group, n = data.get_group(), data.size()
+
+    def per_leaf():
+        for g in g_list:
+            dist.all_reduce(g, group=group)
+            g.div_(n)
+
+    out = dict(reduce_ms=cuda_time_ms(
+                   lambda: train.all_reduce_mean(g_list, mesh), iters=5),
+               reduce_per_leaf_ms=cuda_time_ms(per_leaf, iters=5),
+               grad_gb=sum(g.numel() * g.element_size()
+                           for g in g_list) / 1e9)
+    del grads, g_list
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_resume(model, train, fa, bootstrap, mesh_lib, checkpoint, tr):
+    """phase_train's run through the data-parallel mesh step over a
+    one-rank nccl group: RESUME_STEPS steps, saved after SAVE_STEP,
+    restored into fresh state through `resume_state` with the stamp
+    SAVE_STEP, and continued.  Losses 1-3 equal phase_train's (the
+    all-reduce over one rank is the identity), every step launches each
+    kernel n_layers times, the restored state is bit-identical to the
+    saved one, and the continued losses equal the uninterrupted run's."""
+    import torch.distributed as dist
+    t = SLICE_SHAPE[1]
+    cfg = model.flagship_config()
+    bootstrap.initialize({"TPU_WORKER_ID": "0", "NUM_PROCESSES": "1"},
+                         device="cuda")
+    tmp = tempfile.mkdtemp(prefix="vtp-resume-")
+    try:
+        mesh = mesh_lib.make_mesh({"dp": 1})
+        optimizer = train.make_optimizer()
+        params, state, _ = train.init_sharded(
+            torch.Generator(device="cuda").manual_seed(5), cfg, mesh,
+            optimizer)
+        batch = train.synthetic_batch(
+            torch.Generator(device="cuda").manual_seed(6), cfg, TRAIN_BATCH,
+            t, mesh)
+        step = train.make_train_step(cfg, optimizer, mesh)
+        leaves = state_leaves(params, state)
+        nbytes = sum(x.numel() * x.element_size() for x in leaves)
+        free = shutil.disk_usage(tmp).free
+        axes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        log(f"[resume] flagship d2048-L8 bf16 on mesh {axes} over "
+            f"{dist.get_backend()}, world {dist.get_world_size()}: state "
+            f"{nbytes / 1e9:.3f} GB in {len(leaves)} tensors; "
+            f"{free / 1e9:.1f} GB free under {tmp}")
+        if free < 1.05 * nbytes:
+            raise RuntimeError(
+                f"not enough disk for the checkpoint: {free / 1e9:.1f} GB "
+                f"free under {tmp}, the state is {nbytes / 1e9:.3f} GB")
+
+        def run(steps, per_step, losses, step_ms):
+            nonlocal params, state
+            for _ in range(steps):
+                before = launch_counts(fa)
+                t1 = time.monotonic()
+                params, state, metrics = step(params, state, batch)
+                losses.append(metrics["loss"].item())
+                torch.cuda.synchronize()
+                step_ms.append((time.monotonic() - t1) * 1e3)
+                after = launch_counts(fa)
+                per_step.append({k: after[k] - before[k] for k in after})
+
+        per_step, losses, step_ms = [], [], []
+        zero_counts(fa)
+        run(SAVE_STEP, per_step, losses, step_ms)
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        checkpoint.save(tmp, SAVE_STEP, params, state)
+        save_s = time.monotonic() - t1
+        # the same state to host memory alone: the device-to-host share
+        # of the save
+        t1 = time.monotonic()
+        saved = [x.detach().to("cpu", copy=True)
+                 for x in state_leaves(params, state)]
+        host_copy_s = time.monotonic() - t1
+        saved_count = state["count"]
+        run(RESUME_STEPS - SAVE_STEP, per_step, losses, step_ms)
+        launches = launch_counts(fa)
+        del params, state, leaves
+        torch.cuda.empty_cache()
+
+        # a restarted gang: fresh state from another seed, then resume
+        params, state, _ = train.init_sharded(
+            torch.Generator(device="cuda").manual_seed(55), cfg, mesh,
+            optimizer)
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        params, state, start = checkpoint.resume_state(
+            params, state, environ={"VTP_CHECKPOINT_DIR": tmp,
+                                    "VTP_RESUME_STEP": str(SAVE_STEP)})
+        torch.cuda.synchronize()
+        restore_s = time.monotonic() - t1
+        restored_count = state["count"]
+        same = [torch.equal(x.detach().cpu(), y) for x, y in
+                zip(state_leaves(params, state), saved)]
+        del saved
+        resumed, resumed_ms = [], []
+        zero_counts(fa)
+        run(RESUME_STEPS - SAVE_STEP, per_step, resumed, resumed_ms)
+        launches_resumed = launch_counts(fa)
+        reduce_ms = time_reduction(train, mesh, params, batch, cfg)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        dist.destroy_process_group()
+    steady = sorted(step_ms[1:])
+    med_ms = steady[len(steady) // 2]
+    res = dict(state_gb=nbytes / 1e9, save_s=save_s,
+               save_gbps=nbytes / save_s / 1e9, host_copy_s=host_copy_s,
+               restore_s=restore_s,
+               restore_gbps=nbytes / restore_s / 1e9, mesh_step_ms=med_ms,
+               plain_step_ms=tr["step_ms"],
+               overhead_ms=med_ms - tr["step_ms"], losses=losses,
+               resumed_losses=resumed, train_losses=tr["losses"][:SAVE_STEP],
+               start_step=start, **reduce_ms,
+               launches={k: launches[k] + launches_resumed[k]
+                         for k in launches})
+    log(f"[resume] losses {losses}; phase_train's {tr['losses']}; step ms "
+        f"{[round(x, 3) for x in step_ms]}; launches per step {per_step}")
+    log(f"[resume] saved step {SAVE_STEP} in {save_s:.3f} s "
+        f"({res['save_gbps']:.3f} GB/s; the state to host memory alone "
+        f"{host_copy_s:.3f} s), restored in {restore_s:.3f} s "
+        f"({res['restore_gbps']:.3f} GB/s), start_step {start}; "
+        f"{sum(same)} of {len(same)} tensors bit-identical, count "
+        f"{restored_count} (saved {saved_count}); "
+        f"resumed losses {resumed} against {losses[SAVE_STEP:]}; step ms "
+        f"{[round(x, 3) for x in resumed_ms]}")
+    log(f"[resume] mesh step median {med_ms:.3f} ms against phase_train's "
+        f"{tr['step_ms']:.3f} ms: {res['overhead_ms']:+.3f} ms; the "
+        f"gradient reduction alone {reduce_ms['reduce_ms']:.3f} ms in "
+        f"256 MB buckets, {reduce_ms['reduce_per_leaf_ms']:.3f} ms with "
+        "one collective a leaf")
+    want = {k: cfg.n_layers for k in launches}
+    if losses[:SAVE_STEP] != tr["losses"][:SAVE_STEP]:
+        raise AssertionError("the mesh step's losses differ from "
+                             "phase_train's")
+    if any(c != want for c in per_step):
+        raise AssertionError(f"launches per step {per_step}, want {want}")
+    if start != SAVE_STEP or not all(same) or restored_count != saved_count:
+        raise AssertionError("the restored state is not the saved one")
+    if resumed != losses[SAVE_STEP:]:
+        raise AssertionError("the resumed losses differ from the "
+                             "uninterrupted run's")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("non-finite loss")
+    del params, state, batch
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     # the port first: alone, without the repo, the script fails here
     # before it prints anything
-    from volcano_tpu_torch.workloads import model, serve, train
+    from volcano_tpu_torch.workloads import (bootstrap, checkpoint, model,
+                                             serve, train, worker)
+    from volcano_tpu_torch.workloads import mesh as mesh_lib
     from volcano_tpu_torch.workloads.ops import _build
     fa = importlib.import_module(
         "volcano_tpu_torch.workloads.ops.flash_attention")
@@ -725,6 +995,8 @@ def main() -> int:
     sl = phase_slice(model, serve, fa)
     tr = phase_train(model, train, fa, flop_peak)
     phase_remat(model, train, fa)
+    wk = phase_worker(model, train, checkpoint, worker)
+    rs = phase_resume(model, train, fa, bootstrap, mesh_lib, checkpoint, tr)
     common = {"shape": list(SLICE_SHAPE), "dtype": "bfloat16",
               "causal": True, "card": smi}
     src = "volcano_tpu/workloads/ops/flash_attention.py"
@@ -766,6 +1038,10 @@ def main() -> int:
     log(f"[train] step ms (median of steady steps) {tr['step_ms']:.3f}, "
         f"tokens/s {tr['tokens_per_s']:.1f}, mfu_bf16_dense "
         f"{tr['mfu_bf16_dense']:.4f}")
+    for kern in kernels:
+        kern["launches_resume"] = rs["launches"][kern["name"]]
+    log(json.dumps({"worker": {"card": smi, "phase_worker": wk,
+                               "phase_resume": rs}}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

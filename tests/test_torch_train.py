@@ -294,16 +294,24 @@ def test_synthetic_batch():
     assert 0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size
 
 
+class _TensorParallelMesh:
+    """What the train step reads of a mesh, with tp = sp = 2: the data
+    axes are ported, tp and sp are not."""
+    mesh_dim_names = ("dp", "fsdp", "tp", "sp")
+    shape = (1, 1, 2, 2)
+    ndim = 4
+
+
 def test_mesh_raises_not_implemented():
     cfg = tm.tiny_config()
     opt = tt.make_optimizer()
     with pytest.raises(NotImplementedError):
-        tt.make_train_step(cfg, opt, mesh=object())
+        tt.make_train_step(cfg, opt, mesh=_TensorParallelMesh())
     params = tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     batch = tt.synthetic_batch(torch.Generator().manual_seed(1), cfg, 2, 8)
     with pytest.raises(NotImplementedError):
         tt.train_step(params, opt.init(params), batch, cfg, opt,
-                      mesh=object())
+                      mesh=_TensorParallelMesh())
 
 
 def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):

@@ -1,9 +1,11 @@
-"""Load the JAX model's parameters into the port.
+"""Load the JAX model's parameters and optimizer state into the port.
 
 torch cannot reproduce `jax.random`, so a comparison with the JAX model
 loads its params by value: the caller turns the JAX pytree into numpy
 arrays (`jax.tree.map(np.asarray, params)`) and hands them here.  The
 layouts are the same ([d_in, d_out] weights), so nothing is transposed.
+`opt_state_from_jax` does the same for the reference's optax state, so
+a JAX-trained state can be continued in the port.
 """
 
 from __future__ import annotations
@@ -36,3 +38,21 @@ def params_from_jax(tree: Dict[str, Any], device=None,
     out["blocks"] = [{k: _tensor(v, device, dtype) for k, v in blk.items()}
                      for blk in tree["blocks"]]
     return out
+
+
+def opt_state_from_jax(state, device=None,
+                       mu_dtype: Optional[torch.dtype] = None
+                       ) -> Dict[str, Any]:
+    """The reference optimizer's state (`train.make_optimizer`'s optax
+    chain, as numpy: `(clip EmptyState, (ScaleByAdamState(count, mu,
+    nu), ...))`) -> the port's `AdamW` state `{"count", "mu", "nu"}` on
+    `device`.  `mu_dtype` defaults to the dtype the reference kept mu
+    in (bf16 or f32); nu is f32."""
+    adam = state[1][0]
+    if mu_dtype is None:
+        first = np.asarray(adam.mu["embed"])
+        mu_dtype = torch.bfloat16 if first.dtype.name == "bfloat16" \
+            else torch.float32
+    return {"count": int(np.asarray(adam.count)),
+            "mu": params_from_jax(adam.mu, device, mu_dtype),
+            "nu": params_from_jax(adam.nu, device, torch.float32)}

@@ -21,18 +21,24 @@ slice: six steps of the flagship d2048-L8 model in bf16 at batch
 counted, the step time, tokens/s and model FLOP/s, a profile of one
 step, and the remat check; (9) the scheduled worker as a vcjob's
 container runs it, `python -m volcano_tpu_torch.workloads.worker` on
-nccl: a fresh run, a resume from a step-5 checkpoint, and the refusal
-to resume from a stamp newer than every checkpoint; (10) the same
-flagship training at full width through the data-parallel mesh step
-over a one-rank nccl group, checkpointed at step 3 (8.0 GB of f32
-params, mu and nu through `torch.distributed.checkpoint`), restored into
-fresh state and continued: losses, launches, bit-identical state, save
-and restore rates, and the mesh step's cost over the plain step.
+nccl, seeing this one card (`CUDA_VISIBLE_DEVICES`), so its launcher
+runs one rank: a fresh run, a resume from a step-5 checkpoint, and the
+refusal to resume from a stamp newer than every checkpoint, each with
+one JSON line and one progress stream; (10) `phase_sharded`: the same
+flagship training at full width through the sharded mesh step (params
+and AdamW state as DTensors laid out by `model.param_shardings`, the
+forward on the local shards) over a one-rank nccl group with mesh
+fsdp 1 x tp 1, its memory after init and its peak, checkpointed at
+step 3 (8.0 GB of f32 params, mu and nu through
+`torch.distributed.checkpoint`), restored into fresh state and
+continued: losses, launches, bit-identical state, save and restore
+rates, and the mesh step's cost over the plain step.
 
 Any failure raises, so the exit code is not 0.  Without a GPU it exits
 non-zero before printing any result.  The last line is the device
 record `{"ok": true, "device": {...}}`; the line before it holds the
-kernels' numbers, and the one before that the worker's and the resume's.
+kernels' numbers, and the one before that the worker's and the sharded
+run's.
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ PEAKS = {"H100 PCIe": (756e12, 2.0e12), "H100 NVL": (835e12, 3.9e12),
          "H100": (989e12, 3.35e12)}
 SLICE_SHAPE = (8, 2048, 16, 128)          # b, t, h, d of the serving slice
 SLICE_REQUESTS = 40
+RANK_SHAPES = ((4, 2048, 8, 128), (2, 2048, 16, 128))
 ATOL_F32 = 1e-4   # f32: the kernel and the plain version differ only in sum order
 # bf16 out: both sides compute in f32 and round once to bf16, and one bf16
 # step is 2^-8 of the value, so a sum-order difference can move a value
@@ -183,7 +190,10 @@ def phase_build(build):
 def kernel_cases():
     """(shape, dtype, causal, fused): fused cases take q/k/v (and dO) as
     strided views of one [b, t, 3, h, d] tensor, so the kernels' TMA
-    tensor maps meet non-contiguous strides."""
+    tensor maps meet non-contiguous strides.  The per-rank shapes of the
+    sharded step (RANK_SHAPES) are held here because the one-card
+    phase_sharded runs at fsdp 1 x tp 1 and so launches the kernels at
+    the full SLICE_SHAPE only."""
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         for causal in (True, False):
@@ -193,6 +203,10 @@ def kernel_cases():
     cases.append(((2, 256, 2, 128), torch.bfloat16, True, True))
     cases.append(((1, 256, 2, 256), torch.bfloat16, False, True))
     cases.append((SLICE_SHAPE, torch.bfloat16, True, False))
+    # one rank's launch of the flagship's global batch on 4 GPUs: fsdp 2
+    # x tp 2 (4 rows, 8 heads) and fsdp 4 (2 rows, 16 heads)
+    for shape in RANK_SHAPES:
+        cases.append((shape, torch.bfloat16, True, False))
     return cases
 
 
@@ -728,11 +742,15 @@ def free_port() -> int:
 
 
 def launch_worker(extra):
-    """`python -m volcano_tpu_torch.workloads.worker` as one process of a
-    one-process job, on the card (WORKER_DEVICE unset): (exit code,
+    """`python -m volcano_tpu_torch.workloads.worker` as the one pod of a
+    one-pod job that sees card 0 alone (CUDA_VISIBLE_DEVICES), so its
+    launcher runs one rank on it (WORKER_DEVICE unset): (exit code,
     stdout, stderr, wall seconds)."""
-    env = {k: v for k, v in os.environ.items() if k != "WORKER_DEVICE"}
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORKER_DEVICE", "LOCAL_RANK", "LOCAL_WORLD_SIZE")}
     env.update(TPU_WORKER_ID="0", NUM_PROCESSES="1", WORKER_STEPS="3",
+               CUDA_VISIBLE_DEVICES=os.environ.get(
+                   "CUDA_VISIBLE_DEVICES", "0").split(",")[0],
                COORDINATOR_ADDRESS=f"127.0.0.1:{free_port()}",
                PYTHONPATH=os.pathsep.join(
                    p for p in (REPO, env.get("PYTHONPATH")) if p))
@@ -746,9 +764,25 @@ def launch_worker(extra):
 
 
 def worker_result(rc, out, err):
+    """The pod's one JSON line, the last of its stdout."""
     if rc != 0:
         raise AssertionError(f"worker exited {rc}:\n{err[-3000:]}")
-    return json.loads(out.strip().splitlines()[-1])
+    lines = out.strip().splitlines()
+    found = [line for line in lines if line.startswith("{")]
+    if len(found) != 1 or lines[-1] != found[0]:
+        raise AssertionError(f"the pod printed {len(found)} JSON lines, "
+                             f"want one as its last line:\n{out[-2000:]}")
+    return json.loads(found[0])
+
+
+def progress_streams(folder):
+    """The progress records under `folder`: the pod's one stream, and no
+    temporary file left behind."""
+    names = os.listdir(folder)
+    if len(names) != 1:
+        raise AssertionError(f"progress files {names}: want the pod's one")
+    with open(os.path.join(folder, names[0])) as f:
+        return json.load(f)
 
 
 def phase_worker(model, train, checkpoint, worker):
@@ -762,8 +796,7 @@ def phase_worker(model, train, checkpoint, worker):
         progress = os.path.join(tmp, "progress", "vtp-w0.json")
         rc, out, err, fresh_s = launch_worker({"VTP_PROGRESS_FILE": progress})
         fresh = worker_result(rc, out, err)
-        with open(progress) as f:
-            record = json.load(f)
+        record = progress_streams(os.path.dirname(progress))
         log(f"[worker] fresh run {fresh_s:.3f} s: {json.dumps(fresh)}; "
             f"progress {json.dumps(record)}")
         if set(fresh) != keys or not (
@@ -782,8 +815,7 @@ def phase_worker(model, train, checkpoint, worker):
             "VTP_PROGRESS_FILE": progress, "VTP_CHECKPOINT_DIR": ckpt,
             "VTP_RESUME_STEP": 5})
         resumed = worker_result(rc, out, err)
-        with open(progress) as f:
-            record = json.load(f)
+        record = progress_streams(os.path.dirname(progress))
         log(f"[worker] resumed from step 5 in {resume_s:.3f} s: "
             f"{json.dumps(resumed)}; progress {json.dumps(record)}")
         # the checkpoint holds the worker's fresh state, so the loss too
@@ -805,9 +837,12 @@ def phase_worker(model, train, checkpoint, worker):
                 loss=fresh["loss"])
 
 
-def state_leaves(params, state):
-    return [x for _, x in leaf_items(params)] + \
-        [x for key in ("mu", "nu") for _, x in leaf_items(state[key])]
+def state_leaves(train, params, state):
+    """This rank's tensors of params, mu and nu (the local shards of
+    DTensors)."""
+    return [train.local(x) for _, x in leaf_items(params)] + \
+        [train.local(x) for key in ("mu", "nu")
+         for _, x in leaf_items(state[key])]
 
 
 def time_reduction(train, mesh, params, batch, cfg):
@@ -816,8 +851,8 @@ def time_reduction(train, mesh, params, batch, cfg):
     buckets) and, for comparison only, as one in-place all_reduce and
     divide a leaf."""
     import torch.distributed as dist
-    _, grads = train.value_and_grad(params, batch, cfg)
-    g_list = [g for _, g in leaf_items(grads)]
+    _, grads = train.value_and_grad(params, batch, cfg, mesh)
+    g_list = [train.local(g) for _, g in leaf_items(grads)]
     data = train.data_mesh(mesh)
     group, n = data.get_group(), data.size()
 
@@ -836,35 +871,52 @@ def time_reduction(train, mesh, params, batch, cfg):
     return out
 
 
-def phase_resume(model, train, fa, bootstrap, mesh_lib, checkpoint, tr):
-    """phase_train's run through the data-parallel mesh step over a
-    one-rank nccl group: RESUME_STEPS steps, saved after SAVE_STEP,
-    restored into fresh state through `resume_state` with the stamp
-    SAVE_STEP, and continued.  Losses 1-3 equal phase_train's (the
-    all-reduce over one rank is the identity), every step launches each
-    kernel n_layers times, the restored state is bit-identical to the
-    saved one, and the continued losses equal the uninterrupted run's."""
+def phase_sharded(model, train, fa, bootstrap, mesh_lib, checkpoint, tr):
+    """phase_train's run through the sharded mesh step over a one-rank
+    nccl group with mesh fsdp 1 x tp 1: params and AdamW state are
+    DTensors laid out by `model.param_shardings`, the forward runs on
+    their local shards.  RESUME_STEPS steps, saved through DCP after
+    SAVE_STEP, restored into fresh state through `resume_state` with the
+    stamp SAVE_STEP, and continued.  Losses 1-5 equal phase_train's bit
+    for bit (at one rank every gather is skipped and the reductions are
+    the identity, so the step runs phase_train's ops), every step
+    launches each kernel n_layers times, the restored state is
+    bit-identical to the saved one, and the continued losses equal the
+    uninterrupted run's.  Prints the memory after init and the peak."""
     import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
     t = SLICE_SHAPE[1]
     cfg = model.flagship_config()
     bootstrap.initialize({"TPU_WORKER_ID": "0", "NUM_PROCESSES": "1"},
                          device="cuda")
     tmp = tempfile.mkdtemp(prefix="vtp-resume-")
     try:
-        mesh = mesh_lib.make_mesh({"dp": 1})
+        mesh = mesh_lib.make_mesh({"fsdp": 1, "tp": 1})
         optimizer = train.make_optimizer()
-        params, state, _ = train.init_sharded(
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        params, state, placements = train.init_sharded(
             torch.Generator(device="cuda").manual_seed(5), cfg, mesh,
             optimizer)
+        torch.cuda.synchronize()
+        init_gb = (torch.cuda.memory_allocated() - base) / 1e9
+        if not all(isinstance(x, DTensor) for x in
+                   [x for _, x in leaf_items(params)] +
+                   [x for k in ("mu", "nu") for _, x in leaf_items(state[k])]):
+            raise AssertionError("the sharded state is not all DTensors")
+        log(f"[sharded] placements of wq, wo, embed on {mesh.mesh_dim_names}"
+            f": {placements['blocks'][0]['wq']}, "
+            f"{placements['blocks'][0]['wo']}, {placements['embed']}; "
+            f"memory after init {init_gb:.3f} GB")
         batch = train.synthetic_batch(
             torch.Generator(device="cuda").manual_seed(6), cfg, TRAIN_BATCH,
             t, mesh)
         step = train.make_train_step(cfg, optimizer, mesh)
-        leaves = state_leaves(params, state)
+        leaves = state_leaves(train, params, state)
         nbytes = sum(x.numel() * x.element_size() for x in leaves)
         free = shutil.disk_usage(tmp).free
         axes = dict(zip(mesh.mesh_dim_names, mesh.shape))
-        log(f"[resume] flagship d2048-L8 bf16 on mesh {axes} over "
+        log(f"[sharded] flagship d2048-L8 bf16 on mesh {axes} over "
             f"{dist.get_backend()}, world {dist.get_world_size()}: state "
             f"{nbytes / 1e9:.3f} GB in {len(leaves)} tensors; "
             f"{free / 1e9:.1f} GB free under {tmp}")
@@ -886,8 +938,10 @@ def phase_resume(model, train, fa, bootstrap, mesh_lib, checkpoint, tr):
                 per_step.append({k: after[k] - before[k] for k in after})
 
         per_step, losses, step_ms = [], [], []
+        torch.cuda.reset_peak_memory_stats()
         zero_counts(fa)
         run(SAVE_STEP, per_step, losses, step_ms)
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
         torch.cuda.synchronize()
         t1 = time.monotonic()
         checkpoint.save(tmp, SAVE_STEP, params, state)
@@ -896,7 +950,7 @@ def phase_resume(model, train, fa, bootstrap, mesh_lib, checkpoint, tr):
         # of the save
         t1 = time.monotonic()
         saved = [x.detach().to("cpu", copy=True)
-                 for x in state_leaves(params, state)]
+                 for x in state_leaves(train, params, state)]
         host_copy_s = time.monotonic() - t1
         saved_count = state["count"]
         run(RESUME_STEPS - SAVE_STEP, per_step, losses, step_ms)
@@ -917,7 +971,7 @@ def phase_resume(model, train, fa, bootstrap, mesh_lib, checkpoint, tr):
         restore_s = time.monotonic() - t1
         restored_count = state["count"]
         same = [torch.equal(x.detach().cpu(), y) for x, y in
-                zip(state_leaves(params, state), saved)]
+                zip(state_leaves(train, params, state), saved)]
         del saved
         resumed, resumed_ms = [], []
         zero_counts(fa)
@@ -929,19 +983,24 @@ def phase_resume(model, train, fa, bootstrap, mesh_lib, checkpoint, tr):
         dist.destroy_process_group()
     steady = sorted(step_ms[1:])
     med_ms = steady[len(steady) // 2]
-    res = dict(state_gb=nbytes / 1e9, save_s=save_s,
+    res = dict(state_gb=nbytes / 1e9, memory_after_init_gb=init_gb,
+               peak_gb=peak_gb, save_s=save_s,
                save_gbps=nbytes / save_s / 1e9, host_copy_s=host_copy_s,
                restore_s=restore_s,
                restore_gbps=nbytes / restore_s / 1e9, mesh_step_ms=med_ms,
                plain_step_ms=tr["step_ms"],
                overhead_ms=med_ms - tr["step_ms"], losses=losses,
-               resumed_losses=resumed, train_losses=tr["losses"][:SAVE_STEP],
+               resumed_losses=resumed,
+               train_losses=tr["losses"][:RESUME_STEPS],
                start_step=start, **reduce_ms,
                launches={k: launches[k] + launches_resumed[k]
                          for k in launches})
-    log(f"[resume] losses {losses}; phase_train's {tr['losses']}; step ms "
-        f"{[round(x, 3) for x in step_ms]}; launches per step {per_step}")
-    log(f"[resume] saved step {SAVE_STEP} in {save_s:.3f} s "
+    log(f"[sharded] losses {losses}; phase_train's {tr['losses']}; step ms "
+        f"{[round(x, 3) for x in step_ms]}; launches per step {per_step}; "
+        f"memory after init {init_gb:.3f} GB, peak over steps 1-"
+        f"{SAVE_STEP} {peak_gb:.3f} GB (phase_train's peak "
+        f"{tr['peak_gb']:.3f} GB)")
+    log(f"[sharded] saved step {SAVE_STEP} in {save_s:.3f} s "
         f"({res['save_gbps']:.3f} GB/s; the state to host memory alone "
         f"{host_copy_s:.3f} s), restored in {restore_s:.3f} s "
         f"({res['restore_gbps']:.3f} GB/s), start_step {start}; "
@@ -949,14 +1008,14 @@ def phase_resume(model, train, fa, bootstrap, mesh_lib, checkpoint, tr):
         f"{restored_count} (saved {saved_count}); "
         f"resumed losses {resumed} against {losses[SAVE_STEP:]}; step ms "
         f"{[round(x, 3) for x in resumed_ms]}")
-    log(f"[resume] mesh step median {med_ms:.3f} ms against phase_train's "
+    log(f"[sharded] mesh step median {med_ms:.3f} ms against phase_train's "
         f"{tr['step_ms']:.3f} ms: {res['overhead_ms']:+.3f} ms; the "
         f"gradient reduction alone {reduce_ms['reduce_ms']:.3f} ms in "
         f"256 MB buckets, {reduce_ms['reduce_per_leaf_ms']:.3f} ms with "
         "one collective a leaf")
     want = {k: cfg.n_layers for k in launches}
-    if losses[:SAVE_STEP] != tr["losses"][:SAVE_STEP]:
-        raise AssertionError("the mesh step's losses differ from "
+    if losses != tr["losses"][:RESUME_STEPS]:
+        raise AssertionError("the sharded step's losses differ from "
                              "phase_train's")
     if any(c != want for c in per_step):
         raise AssertionError(f"launches per step {per_step}, want {want}")
@@ -996,7 +1055,7 @@ def main() -> int:
     tr = phase_train(model, train, fa, flop_peak)
     phase_remat(model, train, fa)
     wk = phase_worker(model, train, checkpoint, worker)
-    rs = phase_resume(model, train, fa, bootstrap, mesh_lib, checkpoint, tr)
+    rs = phase_sharded(model, train, fa, bootstrap, mesh_lib, checkpoint, tr)
     common = {"shape": list(SLICE_SHAPE), "dtype": "bfloat16",
               "causal": True, "card": smi}
     src = "volcano_tpu/workloads/ops/flash_attention.py"
@@ -1039,9 +1098,9 @@ def main() -> int:
         f"tokens/s {tr['tokens_per_s']:.1f}, mfu_bf16_dense "
         f"{tr['mfu_bf16_dense']:.4f}")
     for kern in kernels:
-        kern["launches_resume"] = rs["launches"][kern["name"]]
+        kern["launches_sharded"] = rs["launches"][kern["name"]]
     log(json.dumps({"worker": {"card": smi, "phase_worker": wk,
-                               "phase_resume": rs}}))
+                               "phase_sharded": rs}}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

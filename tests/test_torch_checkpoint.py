@@ -240,8 +240,10 @@ if mode == "save":
         params, state, _ = step(params, state, batch)
     checkpoint.save(ckpt, 2, params, state)
     if dist.get_rank() == 0:     # what was saved, for the test to compare
-        torch.save({"params": tt.tree_map(torch.Tensor.detach, params),
-                    "state": state}, ckpt + ".pt")
+        whole = lambda tree: tt.tree_map(lambda x: x.full_tensor(), tree)
+        torch.save({"params": whole(params),
+                    "state": dict(state, mu=whole(state["mu"]),
+                                  nu=whole(state["nu"]))}, ckpt + ".pt")
     print("saved")
 else:
     params, state, got = checkpoint.restore(ckpt, params, state)

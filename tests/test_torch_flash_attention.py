@@ -205,3 +205,52 @@ def test_rows_check_refuses_unaligned_start():
     tfa._check_rows("flash_bwd", q, lse=rows[:-1].view(1, 2, 128))
     with pytest.raises(ValueError, match="16-byte aligned start"):
         tfa._check_rows("flash_bwd", q, lse=rows[1:].view(1, 2, 128))
+
+
+# -- shapes the reference's kernel takes and the CUDA kernels do not -----
+
+UNCOVERED = [  # (shape, the FLASH_BLOCK override)
+    ((1, 256, 2, 384), None),
+    ((1, 192, 2, 128), "64"),
+]
+
+
+def test_kernel_supported_predicate():
+    assert tfa.supported(256, 384) and not tfa.kernel_supported(256, 384)
+    assert tfa.supported(192, 128, 64, 64) and \
+        not tfa.kernel_supported(192, 128)
+    for t in (128, 256, 2048):
+        for d in tfa.KERNEL_HEAD_DIMS:
+            assert tfa.kernel_supported(t, d)
+    assert not tfa.kernel_supported(256, 512)
+
+
+@pytest.mark.parametrize("shape,block", UNCOVERED,
+                         ids=["d384", "t192_block64"])
+def test_uncovered_shapes_on_cpu_match_the_reference(shape, block,
+                                                     monkeypatch):
+    """A shape supported() admits and the CUDA kernels do not take goes
+    through `_FlashAttention` as every admitted shape does: on a CPU
+    tensor its plain versions compute it, equal to the reference
+    package's Pallas kernel in interpret mode, with the gradients of
+    the reference expression.  (On a CUDA tensor it raises before any
+    launch: tests/test_torch_gpu.py.)"""
+    if block:
+        monkeypatch.setenv("FLASH_BLOCK", block)
+    b, t, h, d = shape
+    q, k, v = _qkv(b, t, h, d, seed=t + d)
+    calls = []
+    apply = tfa._FlashAttention.apply
+    monkeypatch.setattr(tfa._FlashAttention, "apply",
+                        lambda *a: calls.append(1) or apply(*a))
+    tq, tk, tv = (x.requires_grad_() for x in _torch(q, k, v))
+    out = tfa.flash_attention(tq, tk, tv)
+    assert calls == [1]
+    ref = jfa.flash_attention(*map(jnp.asarray, (q, k, v)), interpret=True)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
+                               atol=ATOL, rtol=ATOL)
+    grads = torch.autograd.grad(out.sum(), (tq, tk, tv))
+    ref_grads = torch.autograd.grad(
+        tfa._reference(tq, tk, tv, True).sum(), (tq, tk, tv))
+    for g, r in zip(grads, ref_grads):
+        torch.testing.assert_close(g, r, atol=ATOL, rtol=ATOL)

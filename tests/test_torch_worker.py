@@ -283,11 +283,14 @@ def test_one_rank_mesh_paths():
         params, state, placements = tt.init_sharded(
             torch.Generator().manual_seed(0), cfg, mesh, opt)
         ref = tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-        assert all(torch.equal(a, b) for a, b in zip(tt.leaves(params),
-                                                     tt.leaves(ref)))
+        assert all(torch.equal(tt.local(a), b) for a, b in zip(
+            tt.leaves(params), tt.leaves(ref)))
         assert state["count"] == 0
-        assert all(len(p) == 4 and all(x.is_replicate() for x in p)
-                   for p in tt.leaves(placements))
+        # the reference's layout on a one-rank mesh: every dim whole
+        assert placements == tm.param_shardings(ref, mesh)
+        assert all(len(p) == 4 for p in tt.leaves(placements))
+        assert [p.placements for p in tt.leaves(params)] == \
+            list(tt.leaves(placements))
         batch = tt.synthetic_batch(torch.Generator().manual_seed(1), cfg,
                                    3, 16, mesh)
         whole = tt.synthetic_batch(torch.Generator().manual_seed(1), cfg,
@@ -306,9 +309,10 @@ class _StubMesh:
         self.ndim = len(self.shape)
 
 
-@pytest.mark.parametrize("sizes", [dict(tp=2), dict(sp=2),
+@pytest.mark.parametrize("sizes", [dict(fsdp=2, sp=2), dict(sp=2),
                                    dict(dp=2, tp=2, sp=2)])
 def test_tp_and_sp_raise_not_implemented(sizes):
+    """sp > 1 raises (tp is ported: tests/test_torch_sharded.py)."""
     cfg = tm.tiny_config()
     opt = tt.make_optimizer()
     mesh = _StubMesh(**sizes)
@@ -343,7 +347,7 @@ tree = {k: data[k] for k in ("embed", "final_norm", "head")}
 n_layers = 1 + max(int(k.split(".")[1]) for k in data if k.startswith("blocks."))
 tree["blocks"] = [{k.split(".")[2]: v for k, v in data.items()
                    if k.startswith(f"blocks.{i}.")} for i in range(n_layers)]
-params = convert.params_from_jax(tree, device="cpu")
+params = convert.params_from_jax(tree, device="cpu", mesh=mesh)
 tokens = torch.from_numpy(data["tokens"]).long()
 tokens = tokens[tt.batch_sharding(mesh).rows(len(tokens))]
 cfg = tm.tiny_config()
@@ -357,8 +361,9 @@ for _ in range(3):
     losses.append(float(m["loss"])); norms.append(float(m["grad_norm"]))
 out = {"losses": np.array(losses), "norms": np.array(norms),
        "rows": np.array([tokens.shape[0]])}
-out.update((k, x.detach().numpy()) for k, x in tt.named_leaves(params))
-out.update((k, x.numpy()) for k, x in tt.named_leaves(grads, "grad."))
+out.update((k, x.full_tensor().numpy()) for k, x in tt.named_leaves(params))
+out.update((k, x.full_tensor().numpy())
+           for k, x in tt.named_leaves(grads, "grad."))
 np.savez(dst, **out)
 dist.destroy_process_group()
 """

@@ -10,12 +10,19 @@ The job plugin injects into every worker pod:
     TPU_SLICE_ID         - this worker's slice (multi-slice only)
     TPU_NUM_SLICES       - slice count (multi-slice only; default 1)
 
-`from_env` parses them exactly as the reference does.  `initialize`
-forms the process group: nccl on `cuda`, gloo on `cpu`, one GPU per
-process (`cuda:LOCAL_RANK`, default `cuda:0`).  Unlike the reference,
-which skips `jax.distributed` for one process, it also forms a one-rank
-group then, so that the device mesh, the collective proof and the
-gradient reduction run the same code at every world size.
+`from_env` parses them exactly as the reference does.  A pod may hold
+several GPUs: the reference's one process drives them all, the port
+runs one process a GPU (the launcher in `worker.main` starts them with
+LOCAL_RANK and LOCAL_WORLD_SIZE).  Such a process is rank
+`TPU_WORKER_ID x LOCAL_WORLD_SIZE + LOCAL_RANK` of a world of
+`NUM_PROCESSES x LOCAL_WORLD_SIZE` (`rank_and_world`); a process
+started with LOCAL_RANK alone is one rank, `TPU_WORKER_ID`.
+
+`initialize` forms the process group: nccl on `cuda`, gloo on `cpu`,
+one GPU per process (`cuda:LOCAL_RANK`, default `cuda:0`).  Unlike the
+reference, which skips `jax.distributed` for one process, it also forms
+a one-rank group then, so that the device mesh, the collective proof
+and the gradient reduction run the same code at every world size.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ from __future__ import annotations
 import datetime
 import os
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -41,8 +48,10 @@ ENV_NUM_SLICES = "TPU_NUM_SLICES"
 # the job plugin injects, workloads/checkpoint.resume_state consumes):
 ENV_CHECKPOINT_DIR = "VTP_CHECKPOINT_DIR"
 ENV_RESUME_STEP = "VTP_RESUME_STEP"
-# the GPU this process drives when a node runs several processes
+# the GPU this process drives when a pod runs several processes, and
+# how many processes the pod runs (set by the launcher in worker.main)
 ENV_LOCAL_RANK = "LOCAL_RANK"
+ENV_LOCAL_WORLD_SIZE = "LOCAL_WORLD_SIZE"
 DEFAULT_COORDINATOR_PORT = 8476
 # how long a collective (the rendezvous included) may wait for a peer
 # before it raises, so that a lost rank fails the job instead of hanging it
@@ -105,10 +114,34 @@ def from_env(environ=None) -> BootstrapInfo:
     )
 
 
+def local_layout(environ=None) -> Tuple[int, int]:
+    """(this process's index in its pod, the pod's process count): the
+    launcher's (LOCAL_RANK, LOCAL_WORLD_SIZE).  Without LOCAL_WORLD_SIZE
+    the process is its pod's only rank, (0, 1), whatever GPU LOCAL_RANK
+    names."""
+    env = os.environ if environ is None else environ
+    if ENV_LOCAL_WORLD_SIZE not in env:
+        return 0, 1
+    index, n_local = int(env.get(ENV_LOCAL_RANK, 0)), \
+        int(env[ENV_LOCAL_WORLD_SIZE])
+    if not 0 <= index < n_local:
+        raise ValueError(f"{ENV_LOCAL_RANK}={index} outside a pod of "
+                         f"{n_local} processes")
+    return index, n_local
+
+
+def rank_and_world(info: BootstrapInfo, environ=None) -> Tuple[int, int]:
+    """This process's global rank and the job's world size: each of the
+    NUM_PROCESSES pods runs LOCAL_WORLD_SIZE ranks, pod-major."""
+    index, n_local = local_layout(environ)
+    return info.process_id * n_local + index, info.num_processes * n_local
+
+
 def initialize(environ=None, device=None,
                timeout: float = DEFAULT_TIMEOUT_S) -> BootstrapInfo:
-    """Form the default process group from the injected env and return
-    the parsed info.  `device`: `cuda` (the default; nccl, raises
+    """Form the default process group from the injected env (rank and
+    world by `rank_and_world`) and return the parsed info.  `device`:
+    `cuda` (the default; nccl on `cuda:LOCAL_RANK`, raises
     without a GPU) or `cpu` (gloo).  A group of several processes meets
     at `tcp://COORDINATOR_ADDRESS`; a one-process group uses a store of
     its own and opens no port.  Raises if a group already exists or the
@@ -118,7 +151,8 @@ def initialize(environ=None, device=None,
     dev = resolve_device(device)
     if dist.is_initialized():
         raise RuntimeError("a default process group already exists")
-    kwargs = dict(rank=info.process_id, world_size=info.num_processes,
+    rank, world = rank_and_world(info, env)
+    kwargs = dict(rank=rank, world_size=world,
                   timeout=datetime.timedelta(seconds=timeout))
     if dev.type == "cuda":
         local = torch.device("cuda", int(env.get(ENV_LOCAL_RANK, 0)))
@@ -128,10 +162,10 @@ def initialize(environ=None, device=None,
         kwargs.update(backend="nccl", device_id=local)
     else:
         kwargs.update(backend="gloo")
-    if info.is_distributed:
+    if world > 1:
         if not info.coordinator_address:
             raise ValueError(
-                f"{info.num_processes} processes but no {ENV_COORDINATOR} "
+                f"{world} processes but no {ENV_COORDINATOR} "
                 f"or {ENV_HOSTNAMES} to meet at")
         dist.init_process_group(
             init_method=f"tcp://{info.coordinator_address}", **kwargs)

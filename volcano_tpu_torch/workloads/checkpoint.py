@@ -8,8 +8,12 @@ resumes instead of recomputing.  A checkpoint is the directory
 per writing rank plus the metadata), and rank 0 renames it into place
 once every rank has written, so a reader never sees a partial one.
 The state is saved flat (`params.blocks.0.wq`, ..., `opt_state.count`),
-with the optimizer's int count as a 0-dim tensor.  Replicated tensors
-are written once, so a checkpoint restores at any world size.
+with the optimizer's int count as a 0-dim tensor.  Sharded state
+(DTensors, `train.init_sharded`) is written as each rank's shards, and
+replicated tensors once; a restore reads whatever each target tensor
+holds, so a checkpoint restores at any world size and layout (fsdp and
+tp shards, replicas, or plain tensors in a process without a group) —
+the elastic contract.
 """
 
 from __future__ import annotations
@@ -113,8 +117,8 @@ def restore(directory: str, params_like: Dict[str, Any],
             opt_state_like: Dict[str, Any],
             step: Optional[int] = None) -> Tuple[Any, Any, int]:
     """Restore (params, opt_state, step) in place into the *_like trees
-    (e.g. freshly initialized state), which keep their devices and
-    dtypes; the latest step unless `step` is given."""
+    (e.g. freshly initialized state), which keep their devices, dtypes
+    and layouts; the latest step unless `step` is given."""
     if not os.path.isdir(directory):
         # don't create an empty checkpoint dir just by probing
         raise FileNotFoundError(f"no checkpoint under {directory}")

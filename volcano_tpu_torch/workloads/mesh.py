@@ -10,11 +10,13 @@ Axes follow the reference:
           tier between slices; OUTERMOST, so only the batch-gradient
           reduction crosses it
 
-One process drives one GPU, so a mesh coordinate is a rank.  The
-default process group must exist before a mesh is built
+One process drives one GPU, so a mesh coordinate is a rank; a pod of
+several GPUs runs several consecutive ranks, which share its slice id.
+The default process group must exist before a mesh is built
 (`bootstrap.initialize`): `init_device_mesh` would otherwise start an
-`env://` group of its own.  The training step runs dp, fsdp and dcn as
-data axes only (`train.py`); tp and sp are ROADMAP A.3.
+`env://` group of its own.  The training step shards params over fsdp
+and tp and the batch over dcn, dp and fsdp (`model.param_shardings`,
+`train.py`); sp is ROADMAP A.3.
 """
 
 from __future__ import annotations
@@ -111,8 +113,9 @@ def group_by_slice(ranks: Sequence[int], num_slices: int,
     distinct ids number `num_slices` and the groups are equal; else equal
     sequential chunks in rank order.  (The reference's middle tier, the
     process index, gives the chunks' groups when a process drives one
-    GPU.)  Returns num_slices lists of equal length, ordered by slice
-    id."""
+    GPU.)  A pod's ranks are consecutive and carry its slice id, so
+    either way they land in its slice.  Returns num_slices lists of
+    equal length, ordered by slice id."""
     ranks = list(ranks)
     groups = None
     if slice_ids is not None and None not in slice_ids:

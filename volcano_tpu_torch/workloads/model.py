@@ -12,18 +12,37 @@ counterpart of `jax.checkpoint` with the nothing-saveable policy) when
 gradients are being recorded; without them it changes nothing.
 `next_token_loss` and `loss_fn` are the training objective.
 
+Sharding follows the reference's `_PARAM_SPECS`: `param_specs` gives
+each leaf its axes, `param_shardings` its DTensor placements on a
+(dp, fsdp, tp, sp) or (dcn, dp, fsdp, tp, sp) `DeviceMesh`, and
+`distribute` lays a param tree out by them.  With a mesh, the forward
+runs on this rank's local shards (plain tensors, so the flash kernels
+never see a DTensor) and spells out what GSPMD inserts for the
+reference: each weight is all-gathered over fsdp at its use (its
+gradient comes back reduce-scattered); under tp the Megatron layout,
+q/k/v, w_gate and w_up column-sharded and wo and w_down row-sharded
+ending in an all-reduce over tp, with attention on the rank's
+n_heads / tp heads; the embedding table gathered whole for the lookup;
+the head's vocab-sharded logits gathered over tp before the loss.  The
+residual stream stays full width and replicated over tp by construction
+(the reference anchors it with `_constrain_residual`, a sharding
+constraint that local tensors do not need).
+
 Not yet ported: mixture-of-experts blocks (`n_experts > 0` raises
-NotImplementedError) and the sharded mesh paths (ring and Ulysses flags
-do nothing without a mesh, as in the reference with mesh=None).
+NotImplementedError) and sequence parallelism (a mesh with sp > 1
+raises; ring and Ulysses flags do nothing without one, as in the
+reference with mesh=None).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 from torch.utils.checkpoint import checkpoint
 
 from volcano_tpu_torch.workloads.ops.flash_attention import flash_attention
@@ -123,6 +142,183 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
+# -- sharding ---------------------------------------------------------
+
+# each dense leaf's mesh axis per dim (None: not sharded), as the
+# reference's PartitionSpecs; the MoE leaves wait for the MoE slice
+_PARAM_SPECS: Dict[str, Tuple[Optional[str], ...]] = {
+    "embed": ("tp", "fsdp"),
+    "final_norm": (None,),
+    "head": ("fsdp", "tp"),
+    "attn_norm": (None,),
+    "wq": ("fsdp", "tp"),
+    "wk": ("fsdp", "tp"),
+    "wv": ("fsdp", "tp"),
+    "wo": ("tp", "fsdp"),
+    "mlp_norm": (None,),
+    "w_gate": ("fsdp", "tp"),
+    "w_up": ("fsdp", "tp"),
+    "w_down": ("tp", "fsdp"),
+}
+
+
+def map_named(fn: Callable[[str, Any], Any],
+              tree: Dict[str, Any]) -> Dict[str, Any]:
+    """A dict of the param tree's structure with fn(leaf name, leaf)."""
+    out: Dict[str, Any] = {k: fn(k, v) for k, v in tree.items()
+                           if k != "blocks"}
+    if "blocks" in tree:
+        out["blocks"] = [{k: fn(k, v) for k, v in blk.items()}
+                         for blk in tree["blocks"]]
+    return out
+
+
+def param_specs(params) -> Dict[str, Any]:
+    """The spec tree of a param tree: each leaf's tuple of mesh axes, one
+    a dim, as the reference's `param_specs` gives its PartitionSpecs.
+    Dense params never name dcn: they are replicated across slices, and
+    the gradient mean carries the one cross-slice reduction.  (The
+    reference's promotion of expert dims over dcn, which reads the mesh,
+    waits for the MoE slice.)"""
+    return map_named(lambda name, _: _PARAM_SPECS.get(name, (None,)),
+                     params)
+
+
+def placements(spec, mesh) -> tuple:
+    """DTensor placements on `mesh` of a spec: Shard(i) on each mesh dim
+    that the spec names at tensor dim i, Replicate on the others."""
+    out = []
+    for axis in mesh.mesh_dim_names:
+        dims = [i for i, s in enumerate(spec)
+                if s == axis or (isinstance(s, tuple) and axis in s)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return tuple(out)
+
+
+def param_shardings(params, mesh) -> Dict[str, Any]:
+    """Each leaf's DTensor placements on `mesh` (`param_specs`)."""
+    return map_named(lambda _, spec: placements(spec, mesh),
+                     param_specs(params))
+
+
+def distribute(tree: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """A param-structured tree (params, or AdamW's mu or nu), the same
+    whole tensors on every rank, as DTensors laid out by
+    `param_shardings`: each rank keeps a copy of its shard only.
+    Raises unless every sharded dim divides over its axes."""
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+    def shard(name, x):
+        spec = _PARAM_SPECS.get(name, (None,))
+        for dim, axes in enumerate(spec):
+            n = 1
+            for axis in (axes if isinstance(axes, tuple) else (axes,)):
+                n *= sizes.get(axis, 1) if axis else 1
+            if x.shape[dim] % n:
+                raise ValueError(f"{name} {tuple(x.shape)}: dim {dim} does "
+                                 f"not divide over {axes} ({n} ranks)")
+        return distribute_tensor(x, mesh, placements(spec, mesh),
+                                 src_data_rank=None)
+
+    return map_named(shard, tree)
+
+
+class _Axes:
+    """The fsdp and tp process groups the forward's collectives run
+    over; None for an axis of size 1 (and for both without a mesh), where
+    the collectives are skipped."""
+
+    def __init__(self, mesh=None):
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape)) if mesh else {}
+        if sizes.get("sp", 1) > 1:
+            raise NotImplementedError(
+                f"mesh {sizes}: sequence parallelism (sp > 1) is not "
+                "ported yet; it is ROADMAP A.3")
+        self.fsdp = mesh.get_group("fsdp") if sizes.get("fsdp", 1) > 1 \
+            else None
+        self.tp = mesh.get_group("tp") if sizes.get("tp", 1) > 1 else None
+        self.tp_size = sizes.get("tp", 1)
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather x along `dim` over `group`.  Backward: with `partial`,
+    each rank holds its own part of the gradient (its own rows of the
+    batch), so the pieces are summed and scattered (reduce-scatter);
+    without, every rank holds the same gradient and keeps its chunk."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, partial):
+        ctx.dim, ctx.group, ctx.partial = dim, group, partial
+        n = dist.get_world_size(group)
+        # the shards stacked along a new leading dim, passed as their
+        # concatenation along dim 0 as the collective takes them
+        buf = x.new_empty((n,) + tuple(x.shape))
+        dist.all_gather_into_tensor(buf.flatten(0, 1), x.contiguous(),
+                                    group=group)
+        return buf.movedim(0, dim).flatten(dim, dim + 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        n = dist.get_world_size(ctx.group)
+        chunks = grad.chunk(n, dim=ctx.dim)
+        if not ctx.partial:
+            return (chunks[dist.get_rank(ctx.group)].contiguous(), None,
+                    None, None)
+        out = grad.new_empty(chunks[0].shape)
+        dist.reduce_scatter_tensor(out, torch.cat(chunks), group=ctx.group)
+        return out, None, None, None
+
+
+class _CopyToTp(torch.autograd.Function):
+    """Identity forward; backward the sum over tp of the gradient, which
+    each tp rank holds only for its own columns' path (Megatron's f)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromTp(torch.autograd.Function):
+    """The sum over tp of a row-parallel product's partial sums; the
+    backward passes the (tp-replicated) gradient through (Megatron's g)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _use(w, name: str, ax: _Axes, whole: bool = False):
+    """A weight at its use: this rank's shard gathered over fsdp, and
+    with `whole` over tp too (the embedding's lookup)."""
+    for dim, axis in enumerate(_PARAM_SPECS[name]):
+        if axis == "fsdp" and ax.fsdp is not None:
+            w = _Gather.apply(w, dim, ax.fsdp, True)
+        elif axis == "tp" and whole and ax.tp is not None:
+            w = _Gather.apply(w, dim, ax.tp, False)
+    return w
+
+
+def _copy_to_tp(x, ax: _Axes):
+    return x if ax.tp is None else _CopyToTp.apply(x, ax.tp)
+
+
+def _reduce_from_tp(x, ax: _Axes):
+    return x if ax.tp is None else _ReduceFromTp.apply(x, ax.tp)
+
+
 # -- forward ----------------------------------------------------------
 
 def _rms_norm(x, scale, eps=1e-6):
@@ -146,55 +342,68 @@ def _rotary(x, positions):
                      dim=-1).to(x.dtype)
 
 
-def _attention(x, blk, cfg: ModelConfig, positions):
-    b, t, d = x.shape
-    shape = (b, t, cfg.n_heads, cfg.head_dim)
-    q = (x @ blk["wq"].to(x.dtype)).reshape(shape)
-    k = (x @ blk["wk"].to(x.dtype)).reshape(shape)
-    v = (x @ blk["wv"].to(x.dtype)).reshape(shape)
+def _attention(x, blk, cfg: ModelConfig, positions, ax: _Axes):
+    b, t, _ = x.shape
+    x = _copy_to_tp(x, ax)
+    shape = (b, t, cfg.n_heads // ax.tp_size, cfg.head_dim)
+    q = (x @ _use(blk["wq"], "wq", ax).to(x.dtype)).reshape(shape)
+    k = (x @ _use(blk["wk"], "wk", ax).to(x.dtype)).reshape(shape)
+    v = (x @ _use(blk["wv"], "wv", ax).to(x.dtype)).reshape(shape)
     q = _rotary(q, positions)
     k = _rotary(k, positions)
     if cfg.use_flash_attention:
         o = flash_attention(q, k, v)
     else:
         o = local_causal_attention(q, k, v)
-    return o.reshape(b, t, d) @ blk["wo"].to(x.dtype)
+    return _reduce_from_tp(
+        o.reshape(b, t, -1) @ _use(blk["wo"], "wo", ax).to(x.dtype), ax)
 
 
-def _mlp(x, blk):
-    gate = torch.nn.functional.silu(x @ blk["w_gate"].to(x.dtype))
-    up = x @ blk["w_up"].to(x.dtype)
-    return (gate * up) @ blk["w_down"].to(x.dtype)
+def _mlp(x, blk, ax: _Axes):
+    x = _copy_to_tp(x, ax)
+    gate = torch.nn.functional.silu(
+        x @ _use(blk["w_gate"], "w_gate", ax).to(x.dtype))
+    up = x @ _use(blk["w_up"], "w_up", ax).to(x.dtype)
+    return _reduce_from_tp(
+        (gate * up) @ _use(blk["w_down"], "w_down", ax).to(x.dtype), ax)
 
 
-def _block(x, blk, cfg: ModelConfig, positions):
+def _block(x, blk, cfg: ModelConfig, positions, ax: _Axes):
     """Returns (x, moe_aux_loss); aux is 0 for dense blocks."""
-    x = x + _attention(_rms_norm(x, blk["attn_norm"]), blk, cfg, positions)
+    x = x + _attention(_rms_norm(x, blk["attn_norm"]), blk, cfg, positions,
+                       ax)
     h = _rms_norm(x, blk["mlp_norm"])
-    return x + _mlp(h, blk), torch.zeros((), device=x.device)
+    return x + _mlp(h, blk, ax), torch.zeros((), device=x.device)
 
 
 def forward_with_aux(params, tokens, cfg: ModelConfig, mesh=None):
-    """tokens [b, t] -> (logits [b, t, vocab], moe aux loss scalar)."""
+    """tokens [b, t] -> (logits [b, t, vocab], moe aux loss scalar).
+    With a mesh, params are this rank's local shards (plain tensors laid
+    out by `param_shardings`) and tokens its rows; a mesh with sp > 1
+    raises NotImplementedError."""
     _dense_only(cfg)
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded execution is not ported yet; pass mesh=None")
+    ax = _Axes(mesh)
     b, t = tokens.shape
-    x = params["embed"][tokens].to(cfg.dtype)
+    # the table gathered whole for the lookup, as the reference
+    # replicates it
+    x = _use(params["embed"], "embed", ax, whole=True)[tokens].to(cfg.dtype)
     positions = torch.arange(t, device=tokens.device)[None, :].expand(b, t)
     aux_total = torch.zeros((), device=x.device)
     for blk in params["blocks"]:
         if cfg.remat and torch.is_grad_enabled():
             # keep only the block's inputs; recompute it in the backward
-            x, aux = checkpoint(_block, x, blk, cfg, positions,
+            x, aux = checkpoint(_block, x, blk, cfg, positions, ax,
                                 use_reentrant=False)
         else:
-            x, aux = _block(x, blk, cfg, positions)
+            x, aux = _block(x, blk, cfg, positions, ax)
         aux_total = aux_total + aux
-    x = _rms_norm(x, params["final_norm"])
-    # logits stay in the model dtype, as in the reference
-    return x @ params["head"].to(cfg.dtype), aux_total
+    x = _copy_to_tp(_rms_norm(x, params["final_norm"]), ax)
+    # logits stay in the model dtype, as in the reference; under tp each
+    # rank computes its vocab columns, gathered before the loss
+    logits = x @ _use(params["head"], "head", ax).to(cfg.dtype)
+    if ax.tp is not None:
+        logits = _Gather.apply(logits, logits.dim() - 1, ax.tp, False)
+    return logits, aux_total
 
 
 def forward(params, tokens, cfg: ModelConfig, mesh=None) -> torch.Tensor:

@@ -11,6 +11,10 @@ they run their plain PyTorch versions, `flash_fwd_plain` and
 `flash_bwd_plain` (`flash_bwd_dq_plain` is the dQ kernel's own, with
 the Delta it writes).  There is no fallback from a kernel: a CUDA tensor
 the kernel does not take, a failed build or a failed launch raises.
+Among the shapes `supported()` admits, the kernels take those that
+`kernel_supported()` names (d = 128 or 256, t a multiple of 128); the
+others (d = 384, 512, ..., or t an odd multiple of 64) raise on the card
+before any launch, naming the shape and ROADMAP B.4.
 
 The block sizes (and the FLASH_BLOCK / FLASH_BLOCK_BWD overrides) decide
 the dispatch exactly as in the reference; the CUDA kernels tile by their
@@ -49,6 +53,11 @@ def default_block(t: int, cap: int = 512) -> int:
 def supported(t: int, d: int, block_q: int = 128,
               block_k: int = 128) -> bool:
     return t % block_q == 0 and t % block_k == 0 and d % 128 == 0
+
+
+def kernel_supported(t: int, d: int) -> bool:
+    """Whether the CUDA kernels take sequence length t and head dim d."""
+    return d in KERNEL_HEAD_DIMS and t % KERNEL_SEQ_MULTIPLE == 0
 
 
 def _env_block(name: str, t: int, fallback: int) -> int:
@@ -204,12 +213,11 @@ def _check_kernel_inputs(kernel: str, **xs) -> None:
                 f"other strides a multiple of {align} elements and a "
                 f"16-byte aligned start; got strides {x.stride()}")
     _, t, _, d = first.shape
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{kernel} kernel: head dim {d} not in "
-                         f"{KERNEL_HEAD_DIMS}")
-    if t % KERNEL_SEQ_MULTIPLE:
-        raise ValueError(f"{kernel} kernel: t={t} is not a multiple of "
-                         f"{KERNEL_SEQ_MULTIPLE}")
+    if not kernel_supported(t, d):
+        raise ValueError(
+            f"{kernel} kernel: t={t}, head dim {d}; the kernels take head "
+            f"dims {KERNEL_HEAD_DIMS} and t a multiple of "
+            f"{KERNEL_SEQ_MULTIPLE} (ROADMAP B.4)")
 
 
 def _check_rows(kernel: str, ref, **xs) -> None:

@@ -15,7 +15,10 @@ the path the job plugin injected as VTP_PROGRESS_FILE:
   record also carries `epoch` (VTP_EPOCH, the control plane's
   restart/resize generation);
 * best-effort by design: a worker that cannot write progress keeps
-  training — observability must never fail the workload.
+  training — observability must never fail the workload;
+* one writer per pod: of a pod's several processes (one a GPU,
+  `bootstrap.local_layout`) only the first publishes, as the
+  reference's one process a pod does.
 """
 
 from __future__ import annotations
@@ -26,11 +29,13 @@ import time
 from typing import Optional
 
 from volcano_tpu_torch.api.goodput import ENV_EPOCH, ENV_PROGRESS_FILE
+from volcano_tpu_torch.workloads.bootstrap import local_layout
 
 
 class ProgressReporter:
     """Writes the per-pod progress record; None-safe factory so call
-    sites can do `r = ProgressReporter.from_env(); r and r.report()`.
+    sites can do `r = ProgressReporter.from_env(); r and r.report()`
+    (None also for a pod's processes after its first).
     """
 
     __slots__ = ("path", "epoch", "_now")
@@ -44,7 +49,7 @@ class ProgressReporter:
     def from_env(cls, environ=None) -> Optional["ProgressReporter"]:
         env = os.environ if environ is None else environ
         path = env.get(ENV_PROGRESS_FILE, "")
-        if not path:
+        if not path or local_layout(env)[0] != 0:
             return None
         try:
             epoch = int(env.get(ENV_EPOCH, 0) or 0)

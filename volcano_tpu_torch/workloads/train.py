@@ -11,19 +11,22 @@ Params and optimizer state are dicts with the model's param structure
 (`{"embed", "final_norm", "head", "blocks": [{...}, ...]}`).
 
 With a mesh (`mesh.make_mesh` / `make_hybrid_mesh`, one process per
-GPU) the step is data-parallel: each rank holds its rows of the global
-batch (`batch_sharding`), computes the loss and gradients of its rows,
-and all-reduces both as the mean over the flattened data group
-(dcn x dp x fsdp), so every rank applies the same clipped update to the
-same params and reports the global loss.  The per-rank loss is a mean
-over its b * (t - 1) positions, so this equals the reference's global
-mean only with equal rows per rank, which `batch_sharding` enforces.
-
-fsdp runs here as a data axis only: params and optimizer state are
-replicated on every rank, not sharded.  The results equal the
-reference's; the memory per GPU does not.  Sharding params over fsdp
-(FSDP2 / DTensor), and the tp and sp axes, are ROADMAP A.3: a mesh with
-tp > 1 or sp > 1 raises NotImplementedError.
+GPU) params and AdamW's mu and nu are DTensors laid out as the
+reference lays them out (`model.param_shardings`: sharded over fsdp and
+tp, replicated over dp and dcn; the count stays an int), and each rank
+holds its rows of the global batch (`batch_sharding`: over the data
+axes dcn x dp x fsdp).  The step runs the forward on the local shards
+(`model.forward_with_aux` gathers each weight over fsdp at its use) and
+reduces the gradients to the global batch's mean: a leaf sharded over
+fsdp comes back from the backward reduce-scattered (summed) over fsdp
+and is then summed over (dcn, dp); every other leaf is summed over the
+flattened data group; both are divided by the data group's size.  The
+clip's global norm sums each leaf's local squares over the axes it is
+sharded on (`grad_global_norm`), and AdamW runs on the local shards.
+The per-rank loss is a mean over its b * (t - 1) positions, so the mean
+over the data group equals the reference's global mean only with equal
+rows per rank, which `batch_sharding` enforces.  A mesh with sp > 1
+raises NotImplementedError (ROADMAP A.3).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import Replicate
+from torch.distributed.tensor import DTensor, Shard
 
 from volcano_tpu_torch.workloads import model as model_lib
 from volcano_tpu_torch.workloads.model import ModelConfig
@@ -49,8 +52,12 @@ B1, B2, EPS = 0.9, 0.999, 1e-8
 # gradients are all-reduced in flat buckets of at most this many
 # elements (256 MB of f32), not one collective a leaf
 BUCKET_ELEMS = 1 << 26
-# the name of the flattened data sub-mesh (dcn x dp x fsdp)
+# the names of the flattened sub-meshes: the data axes (dcn x dp x
+# fsdp), the replica axes of an fsdp shard (dcn x dp) and the axes a
+# leaf shards over (fsdp x tp)
 DATA_MESH = "data"
+REPLICA_MESH = "replica"
+SHARD_MESH = "shard"
 
 
 def named_leaves(tree: Dict[str, Any], prefix: str = ""
@@ -66,6 +73,12 @@ def named_leaves(tree: Dict[str, Any], prefix: str = ""
             yield f"{prefix}blocks.{i}.{name}", x
 
 
+def local(x):
+    """This rank's shard of a DTensor (a view of its storage); any other
+    tensor as it is."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
 def leaves(tree: Dict[str, Any]) -> Iterator[torch.Tensor]:
     """The tensors of a param-structured dict, in `named_leaves` order."""
     return (x for _, x in named_leaves(tree))
@@ -74,12 +87,7 @@ def leaves(tree: Dict[str, Any]) -> Iterator[torch.Tensor]:
 def tree_map(fn: Callable[[torch.Tensor], torch.Tensor],
              tree: Dict[str, Any]) -> Dict[str, Any]:
     """A dict of the same structure and order with fn of each tensor."""
-    out: Dict[str, Any] = {k: fn(v) for k, v in tree.items()
-                           if k != "blocks"}
-    if "blocks" in tree:
-        out["blocks"] = [{k: fn(v) for k, v in blk.items()}
-                         for blk in tree["blocks"]]
-    return out
+    return model_lib.map_named(lambda _, x: fn(x), tree)
 
 
 def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
@@ -136,11 +144,15 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, params: Dict[str, Any], grads: Dict[str, Any],
-               state: Dict[str, Any]) -> torch.Tensor:
-        """Apply one update to params and state in place; returns the
-        global norm of the unclipped grads (a 0-dim tensor)."""
-        g_leaves = list(leaves(grads))
-        g_norm = global_norm(g_leaves)
+               state: Dict[str, Any],
+               g_norm: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Apply one update to params and state in place, on each leaf's
+        local shard when they are DTensors; returns the global norm of
+        the unclipped grads (a 0-dim tensor), `g_norm` when given (the
+        sharded step's `grad_global_norm`), else `global_norm` of grads."""
+        g_leaves = [local(g) for g in leaves(grads)]
+        if g_norm is None:
+            g_norm = global_norm(g_leaves)
         # clip as optax does: g when the norm is below the limit, else
         # g / norm * limit (a tensor op, so the host never waits)
         clip = torch.where(g_norm < MAX_GRAD_NORM, 1.0,
@@ -151,6 +163,7 @@ class AdamW:
         bc2 = 1.0 - B2 ** state["count"]
         for p, g, mu, nu in zip(leaves(params), g_leaves,
                                 leaves(state["mu"]), leaves(state["nu"])):
+            p, mu, nu = local(p), local(mu), local(nu)
             g = g * clip
             m = (1 - B1) * g + self._b1_mu * mu
             nu.copy_((1 - B2) * g.square() + B2 * nu)
@@ -176,7 +189,7 @@ def make_optimizer(lr: float = 3e-4, weight_decay: float = 0.01,
     return AdamW(schedule, weight_decay, mu_dtype)
 
 
-# -- the data-parallel mesh paths ---------------------------------------
+# -- the mesh paths -----------------------------------------------------
 
 def _axis_sizes(mesh) -> Dict[str, int]:
     return dict(zip(mesh.mesh_dim_names, mesh.shape))
@@ -184,10 +197,10 @@ def _axis_sizes(mesh) -> Dict[str, int]:
 
 def _check_mesh(mesh) -> None:
     sizes = _axis_sizes(mesh)
-    if sizes.get("tp", 1) > 1 or sizes.get("sp", 1) > 1:
+    if sizes.get("sp", 1) > 1:
         raise NotImplementedError(
-            f"mesh {sizes}: only the data axes (dcn, dp, fsdp) are ported; "
-            "tp and sp are ROADMAP A.3")
+            f"mesh {sizes}: sequence parallelism (sp > 1) is not ported "
+            "yet; it is ROADMAP A.3")
 
 
 def data_axes(mesh) -> tuple:
@@ -197,12 +210,27 @@ def data_axes(mesh) -> tuple:
         else ("dp", "fsdp")
 
 
+def _sub_mesh(mesh: DeviceMesh, axes: tuple, name: str) -> DeviceMesh:
+    """The 1-D sub-mesh of `axes`, flattened under `name` when there
+    are several.  Every rank must call it at the same point the first
+    time (flattening forms a group); later calls return the same mesh."""
+    return mesh[axes[0]] if len(axes) == 1 else mesh[axes]._flatten(name)
+
+
 def data_mesh(mesh: DeviceMesh) -> DeviceMesh:
     """The 1-D sub-mesh of the data axes flattened, whose group carries
-    the gradient reduction.  Every rank must call it at the same point
-    the first time (it forms a group); later calls return the same
-    mesh."""
-    return mesh[data_axes(mesh)]._flatten(DATA_MESH)
+    the gradient reduction."""
+    return _sub_mesh(mesh, data_axes(mesh), DATA_MESH)
+
+
+def _replica_mesh(mesh: DeviceMesh) -> DeviceMesh:
+    """The data axes but fsdp: the ranks that hold the same fsdp shard."""
+    return _sub_mesh(mesh, data_axes(mesh)[:-1], REPLICA_MESH)
+
+
+def _shard_mesh(mesh: DeviceMesh) -> DeviceMesh:
+    """The axes params shard over, fsdp x tp."""
+    return _sub_mesh(mesh, ("fsdp", "tp"), SHARD_MESH)
 
 
 def mesh_device(mesh: DeviceMesh) -> torch.device:
@@ -231,8 +259,8 @@ class BatchShard:
 
 
 def batch_sharding(mesh: DeviceMesh) -> BatchShard:
-    """Tokens [b, t]: batch over data_axes; the sequence would shard over
-    sp, which must be 1 here."""
+    """Tokens [b, t]: batch over data_axes, the same rows on every tp
+    rank; the sequence would shard over sp, which must be 1 here."""
     _check_mesh(mesh)
     sizes = _axis_sizes(mesh)
     coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
@@ -245,30 +273,31 @@ def batch_sharding(mesh: DeviceMesh) -> BatchShard:
 
 def init_sharded(generator: torch.Generator, cfg: ModelConfig,
                  mesh: DeviceMesh, optimizer: AdamW):
-    """(params, opt_state, placements) on this rank's device, replicated
-    across the data axes: every rank draws the same params from the same
-    seed.  `placements` gives each param leaf its DTensor placements on
-    the mesh (all `Replicate()` in this slice)."""
+    """(params, opt_state, placements) on this rank's device, laid out
+    as the reference's `init_sharded` lays them out: every rank draws
+    the same params from the same seed, keeps its shard (DTensors by
+    `model.param_shardings`, which `placements` gives) and frees the
+    rest; mu and nu take the params' placements, the count is an int."""
     _check_mesh(mesh)
-    params = model_lib.init_params(cfg, generator, mesh_device(mesh))
-    opt_state = optimizer.init(params)
-    placements = tree_map(lambda _: (Replicate(),) * mesh.ndim, params)
-    return params, opt_state, placements
+    params = model_lib.distribute(
+        model_lib.init_params(cfg, generator, mesh_device(mesh)), mesh)
+    return params, optimizer.init(params), \
+        model_lib.param_shardings(params, mesh)
 
 
 def _flush(bucket: List[torch.Tensor], group, n: int) -> None:
     flat = torch.cat([t.reshape(-1) for t in bucket])
-    dist.all_reduce(flat, group=group)
+    if group is not None:
+        dist.all_reduce(flat, group=group)
     # the mean, written back in the same pass
     for t, piece in zip(bucket, flat.split([t.numel() for t in bucket])):
         torch.div(piece.view_as(t), n, out=t)
 
 
-def all_reduce_mean(tensors: List[torch.Tensor], mesh: DeviceMesh) -> None:
-    """Replace each tensor, in place, by its mean over the data group,
-    in flat buckets of at most BUCKET_ELEMS elements of one dtype."""
-    group_mesh = data_mesh(mesh)
-    group, n = group_mesh.get_group(), group_mesh.size()
+def _sum_and_divide(tensors: List[torch.Tensor], group, n: int) -> None:
+    """Replace each tensor, in place, by its sum over `group` (None: no
+    reduction) divided by n, in flat buckets of at most BUCKET_ELEMS
+    elements of one dtype."""
     bucket: List[torch.Tensor] = []
     elems = 0
     for t in tensors:
@@ -282,27 +311,97 @@ def all_reduce_mean(tensors: List[torch.Tensor], mesh: DeviceMesh) -> None:
         _flush(bucket, group, n)
 
 
+def all_reduce_mean(tensors: List[torch.Tensor], mesh: DeviceMesh) -> None:
+    """Replace each tensor, in place, by its mean over the data group,
+    in flat buckets of at most BUCKET_ELEMS elements of one dtype."""
+    group_mesh = data_mesh(mesh)
+    _sum_and_divide(tensors, group_mesh.get_group(), group_mesh.size())
+
+
+def _sharded_over(placements, mesh: DeviceMesh, axes: tuple) -> int:
+    """The number of shards a leaf with `placements` has over `axes`."""
+    sizes = _axis_sizes(mesh)
+    n = 1
+    for axis, place in zip(mesh.mesh_dim_names, placements):
+        if axis in axes and isinstance(place, Shard):
+            n *= sizes[axis]
+    return n
+
+
+def _reduce_grads(grads: List[torch.Tensor], placements: List[tuple],
+                  mesh: DeviceMesh) -> None:
+    """Turn each rank's local gradients, in place, into its shards of
+    the global batch's mean gradient.  A leaf sharded over fsdp arrives
+    summed over fsdp by the backward's reduce-scatter and is summed over
+    the rest of the data axes; every other leaf is summed over all of
+    them; both are divided by the data group's size."""
+    data = data_mesh(mesh)
+    n = data.size()
+    by_fsdp = [_sharded_over(p, mesh, ("fsdp",)) > 1 for p in placements]
+    _sum_and_divide([g for g, s in zip(grads, by_fsdp) if not s],
+                    data.get_group(), n)
+    sharded = [g for g, s in zip(grads, by_fsdp) if s]
+    if sharded:
+        replica = _replica_mesh(mesh)
+        _sum_and_divide(sharded, replica.get_group()
+                        if replica.size() > 1 else None, n)
+
+
+def grad_global_norm(grads: Dict[str, Any], mesh: DeviceMesh
+                     ) -> torch.Tensor:
+    """optax's `global_norm` of the global gradient from each rank's
+    shards of it (DTensors; the same on every rank): the local squares
+    summed over the fsdp x tp ranks, each leaf weighted by its shards
+    over the group's size, so a leaf held whole by every rank counts
+    once.  Without a sharded axis it is `global_norm` of the local
+    gradients."""
+    g_leaves = list(leaves(grads))
+    local_grads = [local(g) for g in g_leaves]
+    group_mesh = _shard_mesh(mesh)
+    n = group_mesh.size()
+    if n == 1:
+        return global_norm(local_grads)
+    weights = torch.tensor(
+        [_sharded_over(g.placements, mesh, ("fsdp", "tp")) / n
+         for g in g_leaves],
+        dtype=torch.float32, device=local_grads[0].device)
+    norms = torch.stack([torch.linalg.vector_norm(g.float())
+                         for g in local_grads])
+    total = (norms.square() * weights).sum()
+    dist.all_reduce(total, group=group_mesh.get_group())
+    return total.sqrt()
+
+
 def value_and_grad(params: Dict[str, Any], batch: Dict[str, Any],
                    cfg: ModelConfig, mesh: Optional[DeviceMesh] = None):
     """(loss, grads) of `model.loss_fn`; grads have the params'
-    structure.  Marks the params as requiring grad.  With a mesh, batch
-    holds this rank's rows, and the loss and grads returned are their
-    means over the data group."""
+    structure.  With a mesh, params are DTensors, batch holds this
+    rank's rows, the forward runs on the local shards, and the loss and
+    grads returned are the global batch's mean (grads as DTensors with
+    the params' placements)."""
     if mesh is not None:
         _check_mesh(mesh)
-    p_leaves = list(leaves(params))
+    # the leaves differentiated: detached views of the params' storage
+    # (of their local shards, with a mesh)
+    shards = tree_map(lambda x: local(x).detach().requires_grad_(True),
+                      params)
     with torch.enable_grad():
-        for p in p_leaves:
-            p.requires_grad_(True)
-        loss = model_lib.loss_fn(params, batch, cfg)
-        g_list = list(torch.autograd.grad(loss, p_leaves))
+        loss = model_lib.loss_fn(shards, batch, cfg, mesh)
+        g_list = list(torch.autograd.grad(loss, list(leaves(shards))))
     loss = loss.detach()
-    if mesh is not None:
-        all_reduce_mean(g_list, mesh)
-        all_reduce_mean([loss], mesh)
-    g_leaves = iter(g_list)
-    grads = tree_map(lambda _: next(g_leaves), params)
-    return loss, grads
+    if mesh is None:
+        g_leaves = iter(g_list)
+        return loss, tree_map(lambda _: next(g_leaves), params)
+    placements = [p.placements for p in leaves(params)]
+    _reduce_grads(g_list, placements, mesh)
+    all_reduce_mean([loss], mesh)
+    g_leaves = iter(zip(g_list, placements))
+
+    def as_dtensor(_):
+        g, place = next(g_leaves)
+        return DTensor.from_local(g, mesh, place, run_check=False)
+
+    return loss, tree_map(as_dtensor, params)
 
 
 def train_step(params, opt_state, batch, cfg: ModelConfig,
@@ -314,7 +413,8 @@ def train_step(params, opt_state, batch, cfg: ModelConfig,
     unclipped grads, as 0-dim tensors on the params' device; with a
     mesh, both are global (the same on every rank)."""
     loss, grads = value_and_grad(params, batch, cfg, mesh)
-    grad_norm = optimizer.update(params, grads, opt_state)
+    g_norm = None if mesh is None else grad_global_norm(grads, mesh)
+    grad_norm = optimizer.update(params, grads, opt_state, g_norm)
     return params, opt_state, {"loss": loss, "grad_norm": grad_norm}
 
 
@@ -322,10 +422,12 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW,
                     mesh: Optional[DeviceMesh] = None):
     """step(params, opt_state, batch) -> (params, opt_state, metrics).
     PyTorch runs eagerly, so there is nothing to compile; with a mesh,
-    the data group is formed here, on every rank at once."""
+    the step's groups are formed here, on every rank at once."""
     if mesh is not None:
         _check_mesh(mesh)
         data_mesh(mesh)
+        _replica_mesh(mesh)
+        _shard_mesh(mesh)
 
     def step(params, opt_state, batch):
         return train_step(params, opt_state, batch, cfg, optimizer, mesh)

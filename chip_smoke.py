@@ -32,7 +32,16 @@ fsdp 1 x tp 1, its memory after init and its peak, checkpointed at
 step 3 (8.0 GB of f32 params, mu and nu through
 `torch.distributed.checkpoint`), restored into fresh state and
 continued: losses, launches, bit-identical state, save and restore
-rates, and the mesh step's cost over the plain step.
+rates, and the mesh step's cost over the plain step; (11) `phase_sp`:
+with two or more GPUs, the flagship trained with its sequence over sp 2
+on nccl, Ulysses (the flash kernels inside) against phase_train's
+one-card flash step and the ring against a one-card eager step; on one
+GPU it prints that it did not run, and why.
+
+The kernel phases (3)-(5) also hold and time the kernels at the shapes
+beyond d in {128, 256} and t % 128 == 0 (d = 384 and 512 on the
+CUDA-core kernels, t = 192 and 197 with partial tiles) and at one
+rank's Ulysses shapes, [8, 2048, 4, 128] and [2, 8192, 4, 128].
 
 Any failure raises, so the exit code is not 0.  Without a GPU it exits
 non-zero before printing any result.  The last line is the device
@@ -63,6 +72,15 @@ PEAKS = {"H100 PCIe": (756e12, 2.0e12), "H100 NVL": (835e12, 3.9e12),
 SLICE_SHAPE = (8, 2048, 16, 128)          # b, t, h, d of the serving slice
 SLICE_REQUESTS = 40
 RANK_SHAPES = ((4, 2048, 8, 128), (2, 2048, 16, 128))
+# shapes beyond d in {128, 256} and t % 128 == 0: t an odd multiple of
+# 64, d = 384 and 512 (the CUDA-core kernels), t % 4 != 0 (lse and Delta
+# in padded rows)
+EXTRA_SHAPES = ((1, 192, 2, 128), (1, 256, 2, 384), (1, 256, 2, 512),
+                (1, 197, 2, 128))
+# one rank's flash call under Ulysses: the flagship's 16 heads over sp 4
+# at batch 8 x 2048, the long-context run at batch 2 x 8192, and
+# phase_sp's 16 heads over sp 2
+ULYSSES_SHAPES = ((8, 2048, 4, 128), (2, 8192, 4, 128), (8, 2048, 8, 128))
 ATOL_F32 = 1e-4   # f32: the kernel and the plain version differ only in sum order
 # bf16 out: both sides compute in f32 and round once to bf16, and one bf16
 # step is 2^-8 of the value, so a sum-order difference can move a value
@@ -78,6 +96,10 @@ GRAD_PARITY_SHARE = 1e-3
 # remat against no remat: the same ops on the same values, but for the
 # order in which scatter-adds (the embedding's gradient) accumulate
 REMAT_SHARE = 1e-5
+# the flagship with its sequence over sp 2 against the one-card step,
+# bf16 (tests/test_torch_gpu.py's RTOL_SP_BF16, where the readings are)
+RTOL_SP_BF16 = dict(losses=1.5e-4, norms=7e-4)
+SP_STEPS = 4          # lr(0) = 0: steps 3 and 4 follow real updates
 TRAIN_STEPS = 6
 TRAIN_BATCH = 8
 RESUME_STEPS = 5      # the mesh run; checkpointed after step SAVE_STEP
@@ -191,21 +213,22 @@ def kernel_cases():
     """(shape, dtype, causal, fused): fused cases take q/k/v (and dO) as
     strided views of one [b, t, 3, h, d] tensor, so the kernels' TMA
     tensor maps meet non-contiguous strides.  The per-rank shapes of the
-    sharded step (RANK_SHAPES) are held here because the one-card
-    phase_sharded runs at fsdp 1 x tp 1 and so launches the kernels at
-    the full SLICE_SHAPE only."""
+    sharded step (RANK_SHAPES) and of Ulysses (ULYSSES_SHAPES) are held
+    here because the one-card phases launch the kernels at the full
+    SLICE_SHAPE only."""
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         for causal in (True, False):
             for shape in ((2, 256, 2, 128), (1, 384, 4, 128),
-                          (1, 256, 2, 256)):
+                          (1, 256, 2, 256)) + EXTRA_SHAPES:
                 cases.append((shape, dtype, causal, False))
     cases.append(((2, 256, 2, 128), torch.bfloat16, True, True))
     cases.append(((1, 256, 2, 256), torch.bfloat16, False, True))
+    cases.append(((1, 256, 2, 384), torch.bfloat16, True, True))
     cases.append((SLICE_SHAPE, torch.bfloat16, True, False))
     # one rank's launch of the flagship's global batch on 4 GPUs: fsdp 2
-    # x tp 2 (4 rows, 8 heads) and fsdp 4 (2 rows, 16 heads)
-    for shape in RANK_SHAPES:
+    # x tp 2 (4 rows, 8 heads) and fsdp 4 (2 rows, 16 heads), and Ulysses
+    for shape in RANK_SHAPES + ULYSSES_SHAPES:
         cases.append((shape, torch.bfloat16, True, False))
     return cases
 
@@ -250,22 +273,24 @@ def phase_kernel_vs_plain(fa):
     return slice_err
 
 
-def phase_timing(fa, flop_peak, byte_peak):
-    b, t, h, d = SLICE_SHAPE
-    q, k, v = rand_qkv(SLICE_SHAPE, torch.bfloat16, seed=7)
-    kernel_ms = cuda_time_ms(lambda: fa._launch(q, k, v, True), iters=20)
+def fwd_timing(fa, shape, flop_peak, byte_peak, iters=20):
+    """The forward kernel, its plain version and SDPA at a bf16 causal
+    shape, beside the kernel's bound."""
+    b, t, h, d = shape
+    q, k, v = rand_qkv(shape, torch.bfloat16, seed=7)
+    kernel_ms = cuda_time_ms(lambda: fa._launch(q, k, v, True), iters=iters)
     plain_ms = cuda_time_ms(lambda: fa.flash_fwd_plain(q, k, v, True),
                             iters=3, warmup=1)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))     # views, no copy
     library_ms = cuda_time_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), iters=20)
+            qt, kt, vt, is_causal=True), iters=iters)
     # the causal work this input needs: t(t+1)/2 scores a (batch, head),
     # two products of 2*d FLOP each
     flops = 4.0 * b * h * d * t * (t + 1) / 2
     nbytes = 4 * b * t * h * d * 2 + b * h * t * 4   # q,k,v,out + lse
     bound_ms, bound_by = bound(flops, nbytes, flop_peak, byte_peak)
-    log(f"[timing] {list(SLICE_SHAPE)} bf16 causal: kernel {kernel_ms:.4f} ms "
+    log(f"[timing] {list(shape)} bf16 causal: kernel {kernel_ms:.4f} ms "
         f"({flops / kernel_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
         f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
         f"{flops:.4e} FLOP, {nbytes:.4e} B)")
@@ -273,6 +298,15 @@ def phase_timing(fa, flop_peak, byte_peak):
     torch.cuda.empty_cache()
     return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_timing(fa, flop_peak, byte_peak):
+    """fwd_timing at the serving shape, which the kernels line reports,
+    then at EXTRA_SHAPES and ULYSSES_SHAPES, logged only."""
+    res = fwd_timing(fa, SLICE_SHAPE, flop_peak, byte_peak)
+    for shape in EXTRA_SHAPES + ULYSSES_SHAPES:
+        fwd_timing(fa, shape, flop_peak, byte_peak)
+    return res
 
 
 def full_f32():
@@ -351,34 +385,38 @@ def phase_bwd_vs_plain(fa):
     return slice_err
 
 
-def phase_bwd_timing(fa, flop_peak, byte_peak):
+def bwd_timing(fa, shape, flop_peak, byte_peak, iters=20, profile=False):
     """The dQ and dK/dV kernels alone, the whole `flash_bwd`, the plain
     versions and, as the yardstick of the two kernels together, the
     backward of `scaled_dot_product_attention` (grad of a stored
-    output)."""
-    b, t, h, d = SLICE_SHAPE
-    q, k, v = rand_qkv(SLICE_SHAPE, torch.bfloat16, seed=17)
-    do = rand_qkv(SLICE_SHAPE, torch.bfloat16, seed=18)[0]
+    output), at a bf16 causal shape; with `profile`, one `flash_bwd`
+    under the profiler, which must run the two kernels and nothing
+    else."""
+    b, t, h, d = shape
+    q, k, v = rand_qkv(shape, torch.bfloat16, seed=17)
+    do = rand_qkv(shape, torch.bfloat16, seed=18)[0]
     out, lse = fa._launch(q, k, v, True)
     _, delta = fa._launch_dq(q, k, v, out, do, lse, True)
     dq_ms = cuda_time_ms(
-        lambda: fa._launch_dq(q, k, v, out, do, lse, True), iters=20)
+        lambda: fa._launch_dq(q, k, v, out, do, lse, True), iters=iters)
     dkv_ms = cuda_time_ms(
-        lambda: fa._launch_dkv(q, k, v, do, lse, delta, True), iters=20)
+        lambda: fa._launch_dkv(q, k, v, do, lse, delta, True), iters=iters)
     bwd_ms = cuda_time_ms(
-        lambda: fa.flash_bwd(q, k, v, out, lse, do, True), iters=20)
-    # what one flash_bwd runs on the device: the two kernels and nothing
-    # else (Delta comes from the dQ kernel, not from a torch op)
-    _, by_name = profile_kernels(
-        lambda: fa.flash_bwd(q, k, v, out, lse, do, True))
-    if not by_name:
-        log("[bwd timing] the profiler saw no device kernels: what "
-            "flash_bwd runs is not measured")
-    elif sorted(kernel_group(n) for n in by_name) != ["flash_bwd_dkv",
-                                                      "flash_bwd_dq"]:
-        raise AssertionError(f"flash_bwd ran {sorted(by_name)}")
-    else:
-        log(f"[bwd timing] flash_bwd runs {sorted(by_name)} and nothing else")
+        lambda: fa.flash_bwd(q, k, v, out, lse, do, True), iters=iters)
+    if profile:
+        # what one flash_bwd runs on the device: the two kernels and
+        # nothing else (Delta comes from the dQ kernel, not a torch op)
+        _, by_name = profile_kernels(
+            lambda: fa.flash_bwd(q, k, v, out, lse, do, True))
+        if not by_name:
+            log("[bwd timing] the profiler saw no device kernels: what "
+                "flash_bwd runs is not measured")
+        elif sorted(kernel_group(n) for n in by_name) != ["flash_bwd_dkv",
+                                                          "flash_bwd_dq"]:
+            raise AssertionError(f"flash_bwd ran {sorted(by_name)}")
+        else:
+            log(f"[bwd timing] flash_bwd runs {sorted(by_name)} and "
+                "nothing else")
     dq_plain_ms = cuda_time_ms(
         lambda: fa.flash_bwd_dq_plain(q, k, v, out, do, lse, True), iters=3,
         warmup=1)
@@ -391,7 +429,7 @@ def phase_bwd_timing(fa, flop_peak, byte_peak):
         qt, kt, vt, is_causal=True)
     dot = do.transpose(1, 2)
     library_ms = cuda_time_ms(lambda: torch.autograd.grad(
-        ref, (qt, kt, vt), dot, retain_graph=True), iters=20)
+        ref, (qt, kt, vt), dot, retain_graph=True), iters=iters)
     pairs = b * h * t * (t + 1) / 2
     tensor = b * t * h * d * 2
     rows = b * h * t * 4
@@ -401,7 +439,7 @@ def phase_bwd_timing(fa, flop_peak, byte_peak):
     # dK/dV: S, dP, dV, dK products; reads q,k,v,do,lse,delta, writes dk,dv
     dkv_bound = bound(4 * 2.0 * d * pairs, 6 * tensor + 2 * rows,
                       flop_peak, byte_peak)
-    log(f"[bwd timing] {list(SLICE_SHAPE)} bf16 causal: dq kernel "
+    log(f"[bwd timing] {list(shape)} bf16 causal: dq kernel "
         f"{dq_ms:.4f} ms (bound {dq_bound[0]:.4f}, {dq_bound[1]}), dkv "
         f"kernel {dkv_ms:.4f} ms (bound {dkv_bound[0]:.4f}, "
         f"{dkv_bound[1]}); flash_bwd whole {bwd_ms:.4f} ms against sdpa "
@@ -414,6 +452,16 @@ def phase_bwd_timing(fa, flop_peak, byte_peak):
             "dkv": dict(ms=dkv_ms, bound_ms=dkv_bound[0],
                         bound_by=dkv_bound[1], plain_ms=plain_ms),
             "library_ms": library_ms, "bwd_ms": bwd_ms}
+
+
+def phase_bwd_timing(fa, flop_peak, byte_peak):
+    """bwd_timing at the training shape, which the kernels line reports,
+    with the profile; then at EXTRA_SHAPES and ULYSSES_SHAPES, logged
+    only."""
+    res = bwd_timing(fa, SLICE_SHAPE, flop_peak, byte_peak, profile=True)
+    for shape in EXTRA_SHAPES + ULYSSES_SHAPES:
+        bwd_timing(fa, shape, flop_peak, byte_peak)
+    return res
 
 
 def leaf_items(tree):
@@ -689,7 +737,7 @@ def phase_train(model, train, fa, flop_peak):
     flops, n_params = model_flops(cfg, params, TRAIN_BATCH, t)
     tflops = flops / med_ms / 1e9
     res = dict(launches=launches, steps=TRAIN_STEPS, step_ms=med_ms,
-               losses=losses,
+               losses=losses, norms=norms,
                tokens_per_s=TRAIN_BATCH * t / med_ms * 1e3,
                model_tflops=tflops, mfu_bf16_dense=tflops * 1e12 / flop_peak,
                params_m=n_params / 1e6, peak_gb=peak_gb)
@@ -1031,6 +1079,130 @@ def phase_sharded(model, train, fa, bootstrap, mesh_lib, checkpoint, tr):
     return res
 
 
+# one rank of phase_sp: the flagship bf16 L8 at batch TRAIN_BATCH x 2048
+# from phase_train's seeds, with the sequence over sp; the launch counts
+# set to 0 just before the steps and read just after; every rank prints
+# one JSON line
+RANK_SP = r"""
+import importlib, json, sys, time
+import torch, torch.distributed as dist
+from volcano_tpu_torch.workloads import bootstrap, mesh as mesh_lib
+from volcano_tpu_torch.workloads import model as tm, train as tt
+fa = importlib.import_module("volcano_tpu_torch.workloads.ops.flash_attention")
+flags, batch, seq, steps = (json.loads(sys.argv[1]), int(sys.argv[2]),
+                            int(sys.argv[3]), int(sys.argv[4]))
+bootstrap.initialize(device="cuda")
+mesh = mesh_lib.make_mesh({"sp": dist.get_world_size()}, "cuda")
+cfg = tm.flagship_config(**flags)
+gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)
+opt = tt.make_optimizer()
+params, state, _ = tt.init_sharded(gen(5), cfg, mesh, opt)
+data = tt.synthetic_batch(gen(6), cfg, batch, seq, mesh)
+step = tt.make_train_step(cfg, opt, mesh)
+fa.flash_fwd.launches = 0
+fa.flash_bwd.launches_dq = fa.flash_bwd.launches_dkv = 0
+losses, norms, ms = [], [], []
+for _ in range(steps):
+    t0 = time.monotonic()
+    params, state, m = step(params, state, data)
+    losses.append(m["loss"].item()); norms.append(m["grad_norm"].item())
+    torch.cuda.synchronize()
+    ms.append((time.monotonic() - t0) * 1e3)
+print(json.dumps({"rank": dist.get_rank(), "tokens": list(data["tokens"].shape),
+                  "losses": losses, "norms": norms, "step_ms": ms,
+                  "launches": [fa.flash_fwd.launches, fa.flash_bwd.launches_dq,
+                               fa.flash_bwd.launches_dkv]}))
+dist.destroy_process_group()
+"""
+
+
+def run_sp_ranks(flags, n):
+    """RANK_SP on n ranks, one a GPU (LOCAL_RANK), over nccl: each
+    rank's JSON line."""
+    port = free_port()
+    base = {k: v for k, v in os.environ.items()
+            if k not in ("WORKER_DEVICE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                         "CUDA_VISIBLE_DEVICES")}
+    base["PYTHONPATH"] = os.pathsep.join(
+        p for p in (REPO, base.get("PYTHONPATH")) if p)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", RANK_SP, json.dumps(flags), str(TRAIN_BATCH),
+         str(SLICE_SHAPE[1]), str(SP_STEPS)],
+        env=dict(base, TPU_WORKER_ID=str(r), NUM_PROCESSES=str(n),
+                 LOCAL_RANK=str(r), COORDINATOR_ADDRESS=f"127.0.0.1:{port}"),
+        cwd=REPO, text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for r in range(n)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=WORKER_TIMEOUT_S)
+            if p.returncode != 0:
+                raise AssertionError(f"sp rank exited {p.returncode}:\n"
+                                     f"{err[-3000:]}")
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def phase_sp(model, train, tr):
+    """With 2 or more GPUs, the flagship d2048-L8 bf16 at batch 8 x 2048
+    trained for SP_STEPS steps with its sequence over sp 2 on nccl, from
+    phase_train's weights and batch: Ulysses (each rank's flash kernels
+    at [8, 2048, 8, 128], n_layers launches of each a step) against
+    phase_train's one-card flash step, and the ring (no kernel) against
+    the one-card eager step, losses and grad norms within RTOL_SP_BF16.
+    On one GPU it says that it did not run, and why."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"[sp] not run: phase_sp needs 2 GPUs and this machine has {n}; "
+            "tests/test_torch_gpu.py holds sp on 4")
+        return None
+    t = SLICE_SHAPE[1]
+    cfg = model.flagship_config(use_flash_attention=False)
+    params = model.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(5), "cuda")
+    optimizer = train.make_optimizer()
+    state = optimizer.init(params)
+    batch = train.synthetic_batch(
+        torch.Generator(device="cuda").manual_seed(6), cfg, TRAIN_BATCH, t)
+    step = train.make_train_step(cfg, optimizer)
+    eager = {"losses": [], "norms": []}
+    for _ in range(SP_STEPS):
+        params, state, m = step(params, state, batch)
+        eager["losses"].append(m["loss"].item())
+        eager["norms"].append(m["grad_norm"].item())
+    del params, state, batch
+    torch.cuda.empty_cache()
+    flash = {"losses": tr["losses"][:SP_STEPS],
+             "norms": tr["norms"][:SP_STEPS]}
+    res = {}
+    for name, flags, ref, want in (
+            ("ulysses", {"use_ulysses_attention": True}, flash,
+             cfg.n_layers * SP_STEPS),
+            ("ring", {"use_ring_attention": True}, eager, 0)):
+        ranks = run_sp_ranks(flags, 2)
+        gaps = {k: max(abs(a - b) / abs(b) for a, b in
+                       zip(ranks[0][k], ref[k])) for k in ("losses", "norms")}
+        log(f"[sp] {name} over sp 2, flagship d2048-L8 bf16 at batch "
+            f"{TRAIN_BATCH} x {t}: ranks {json.dumps(ranks)}; one card "
+            f"{json.dumps(ref)}; largest relative gap {gaps} (tolerance "
+            f"{RTOL_SP_BF16})")
+        if any(r["launches"] != [want] * 3 for r in ranks):
+            raise AssertionError(f"{name}: launches {[r['launches'] for r in ranks]}"
+                                 f", want {want} of each kernel")
+        if any(r[k] != ranks[0][k] for r in ranks for k in ("losses", "norms")):
+            raise AssertionError(f"{name}: the ranks' losses differ")
+        if any(gaps[k] > RTOL_SP_BF16[k] for k in gaps):
+            raise AssertionError(f"{name} over sp differs from one card")
+        res[name] = dict(gaps=gaps, step_ms=ranks[0]["step_ms"],
+                         launches=ranks[0]["launches"])
+    return res
+
+
 def main() -> int:
     # the port first: alone, without the repo, the script fails here
     # before it prints anything
@@ -1056,8 +1228,12 @@ def main() -> int:
     phase_remat(model, train, fa)
     wk = phase_worker(model, train, checkpoint, worker)
     rs = phase_sharded(model, train, fa, bootstrap, mesh_lib, checkpoint, tr)
+    sp = phase_sp(model, train, tr)
     common = {"shape": list(SLICE_SHAPE), "dtype": "bfloat16",
-              "causal": True, "card": smi}
+              "causal": True, "card": smi,
+              # every case each kernel was held at against its plain version
+              "shapes": [list(x) for x in
+                         sorted({tuple(c[0]) for c in kernel_cases()})]}
     src = "volcano_tpu/workloads/ops/flash_attention.py"
     kernels = [
         {"name": "flash_fwd", "route": "cuda", "design": "wgmma+tma",
@@ -1100,7 +1276,7 @@ def main() -> int:
     for kern in kernels:
         kern["launches_sharded"] = rs["launches"][kern["name"]]
     log(json.dumps({"worker": {"card": smi, "phase_worker": wk,
-                               "phase_sharded": rs}}))
+                               "phase_sharded": rs, "phase_sp": sp}}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

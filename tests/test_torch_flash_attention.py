@@ -124,17 +124,15 @@ def test_cuda_launcher_refuses_cpu_tensors():
 def test_kernels_take_every_default_dispatched_shape():
     """Every t in 128..8192 and head dim that the dispatch sends to
     `_FlashAttention` at the default blocks is one the CUDA kernels take,
-    so a raised KERNEL_SEQ_MULTIPLE never turns a default shape into a
-    refused launch."""
+    so no default shape turns into a refused launch."""
     taken = 0
     for t in range(128, 8192 + 1, 128):
         blk = tfa.default_block(t)
-        for d in (128, 256):
+        for d in (128, 256, 384, 512):
             if tfa.supported(t, d, blk, blk):
-                assert t % tfa.KERNEL_SEQ_MULTIPLE == 0, (t, d)
-                assert d in tfa.KERNEL_HEAD_DIMS, (t, d)
+                assert tfa.kernel_supported(t, d), (t, d)
                 taken += 1
-    assert taken == 2 * 64
+    assert taken == 4 * 64
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -207,34 +205,55 @@ def test_rows_check_refuses_unaligned_start():
         tfa._check_rows("flash_bwd", q, lse=rows[1:].view(1, 2, 128))
 
 
-# -- shapes the reference's kernel takes and the CUDA kernels do not -----
+# -- shapes beyond d in {128, 256} and t % 128 == 0 -------------------------
 
 UNCOVERED = [  # (shape, the FLASH_BLOCK override)
     ((1, 256, 2, 384), None),
     ((1, 192, 2, 128), "64"),
+    ((1, 256, 2, 512), None),
+    ((1, 96, 2, 128), "32"),
 ]
+UNCOVERED_IDS = ["d384", "t192_block64", "d512", "t96_block32"]
 
 
 def test_kernel_supported_predicate():
-    assert tfa.supported(256, 384) and not tfa.kernel_supported(256, 384)
-    assert tfa.supported(192, 128, 64, 64) and \
-        not tfa.kernel_supported(192, 128)
-    for t in (128, 256, 2048):
-        for d in tfa.KERNEL_HEAD_DIMS:
-            assert tfa.kernel_supported(t, d)
-    assert not tfa.kernel_supported(256, 512)
+    """kernel_supported(t, d) holds exactly where supported() holds at
+    some block pair (a block of t itself, or FLASH_BLOCK dividing t)."""
+    for t in range(1, 300):
+        for d in range(64, 1025, 64):
+            admitted = any(tfa.supported(t, d, b, b)
+                           for b in range(1, t + 1) if t % b == 0)
+            assert tfa.kernel_supported(t, d) == admitted, (t, d)
+    assert tfa.supported(256, 384) and tfa.kernel_supported(256, 384)
+    assert tfa.supported(192, 128, 64, 64) and tfa.kernel_supported(192, 128)
+    assert not tfa.kernel_supported(256, 64)
 
 
-@pytest.mark.parametrize("shape,block", UNCOVERED,
-                         ids=["d384", "t192_block64"])
+def test_rows_stride_pads_to_16_bytes():
+    """lse and Delta rows: t rounded up to a multiple of 4 floats, and
+    the row check takes such a padded view and refuses a contiguous
+    [b, h, t] whose rows are not 16-byte multiples."""
+    assert [tfa.rows_stride(t) for t in (1, 4, 96, 197, 200)] == \
+        [4, 4, 96, 200, 200]
+    q = torch.zeros((1, 197, 2, 128))
+    padded = torch.zeros((1, 2, 200))[..., :197]
+    assert tfa._check_rows("flash_bwd", q, lse=padded, delta=padded) == 200
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tfa._check_rows("flash_bwd", q, lse=torch.zeros((1, 2, 197)))
+    with pytest.raises(ValueError, match="share one row stride"):
+        tfa._check_rows("flash_bwd", q, lse=padded,
+                        delta=torch.zeros((1, 2, 204))[..., :197])
+
+
+@pytest.mark.parametrize("shape,block", UNCOVERED, ids=UNCOVERED_IDS)
 def test_uncovered_shapes_on_cpu_match_the_reference(shape, block,
                                                      monkeypatch):
-    """A shape supported() admits and the CUDA kernels do not take goes
-    through `_FlashAttention` as every admitted shape does: on a CPU
-    tensor its plain versions compute it, equal to the reference
-    package's Pallas kernel in interpret mode, with the gradients of
-    the reference expression.  (On a CUDA tensor it raises before any
-    launch: tests/test_torch_gpu.py.)"""
+    """A shape beyond d in {128, 256} and t % 128 == 0 goes through
+    `_FlashAttention` as every admitted shape does: on a CPU tensor its
+    plain versions compute it, equal to the reference package's Pallas
+    kernel in interpret mode, with the gradients of the reference
+    expression.  (On a CUDA tensor it launches the kernels:
+    tests/test_torch_gpu.py and chip_smoke.py.)"""
     if block:
         monkeypatch.setenv("FLASH_BLOCK", block)
     b, t, h, d = shape
@@ -254,3 +273,46 @@ def test_uncovered_shapes_on_cpu_match_the_reference(shape, block,
         tfa._reference(tq, tk, tv, True).sum(), (tq, tk, tv))
     for g, r in zip(grads, ref_grads):
         torch.testing.assert_close(g, r, atol=ATOL, rtol=ATOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape,block", UNCOVERED, ids=UNCOVERED_IDS)
+def test_uncovered_shapes_fwd_and_bwd_match_jax_interpret(shape, block,
+                                                          causal):
+    """flash_fwd and flash_bwd on CPU tensors at the shapes the kernels
+    gained (d = 384 and 512, t an odd multiple of 64 under 64-row blocks,
+    t = 96 under 32-row blocks): the plain versions, no launch, against
+    the reference's `_flash_bh` and `_flash_bh_bwd` Pallas kernels in
+    interpret mode at the blocks its dispatch would take."""
+    b, t, h, d = shape
+    blk = int(block) if block else tfa.default_block(t)
+    rng = np.random.default_rng(t + d + causal)
+    q, k, v, do = (rng.standard_normal((b, t, h, d)).astype(np.float32)
+                   for _ in range(4))
+
+    def bh(x):
+        return jnp.asarray(x).transpose(0, 2, 1, 3).reshape(b * h, t, d)
+
+    counts = (tfa.flash_fwd.launches, tfa.flash_bwd.launches_dq,
+              tfa.flash_bwd.launches_dkv)
+    out, lse = tfa.flash_fwd(*_torch(q, k, v), causal)
+    grads = tfa.flash_bwd(*_torch(q, k, v), out, lse, torch.from_numpy(do),
+                          causal)
+    assert (tfa.flash_fwd.launches, tfa.flash_bwd.launches_dq,
+            tfa.flash_bwd.launches_dkv) == counts
+    ref_out, ref_lse = jfa._flash_bh(bh(q), bh(k), bh(v), block_q=blk,
+                                     block_k=blk, causal=causal,
+                                     interpret=True)
+    ref = jfa._flash_bh_bwd(bh(q), bh(k), bh(v), ref_out, ref_lse, bh(do),
+                            block_q=blk, block_k=blk, causal=causal,
+                            interpret=True)
+    np.testing.assert_allclose(out.numpy(),
+                               np.asarray(jfa._from_bh(ref_out, b, h)),
+                               atol=ATOL, rtol=ATOL)
+    np.testing.assert_allclose(lse.reshape(b * h, t).numpy(),
+                               np.asarray(ref_lse)[..., 0], atol=ATOL,
+                               rtol=ATOL)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
+        np.testing.assert_allclose(got.numpy(),
+                                   np.asarray(jfa._from_bh(want, b, h)),
+                                   atol=ATOL, rtol=ATOL, err_msg=name)

@@ -2,9 +2,10 @@
 host, as one process a GPU (LOCAL_RANK) and as pods whose launcher
 starts a rank a visible GPU, against one process's loss on the whole
 global batch computed on the CPU; the flagship d2048-L8 trained at full
-width with params and AdamW state sharded over fsdp and tp, against the
-one-card step from the same weights; and the flash dispatch's shapes
-that the kernels do not take.
+width with params and AdamW state sharded over fsdp and tp, and with the
+sequence over sp (Ulysses, the ring, the gathered path, and Ulysses at
+t 8192), against the one-card step from the same weights; and the flash
+kernels at the shapes beyond d in {128, 256} and t % 128 == 0.
 
 Each test needs the GPUs it names and skips without them.  Imports no
 JAX, so it runs where only PyTorch is installed (4 GPUs for all of it):
@@ -44,7 +45,17 @@ SHARE = 1e-5
 # reading
 RTOL_FLAGSHIP_F32 = dict(losses=1e-5, norms=1e-5)
 RTOL_FLAGSHIP_BF16 = dict(losses=1e-4, norms=5e-4)
+# the same under sp, bf16: besides tp's partial sums, the matmuls run on
+# t / sp rows a rank and the gradients are summed over sp, and the ring
+# and the gathered path run the eager attention on sequence blocks (the
+# ring in an online softmax).  Over 5 steps on 4 H100s the six sp runs
+# moved the losses by at most 3.2e-5 and the norms by at most 1.8e-4 of
+# their value (f32: 1.3e-7); each bound is about 4 times its reading
+RTOL_SP_BF16 = dict(losses=1.5e-4, norms=7e-4)
 FLAGSHIP_BATCH, FLAGSHIP_SEQ, FLAGSHIP_STEPS = 8, 2048, 5
+LONG_BATCH, LONG_SEQ = 2, 8192
+# the flash kernels' bf16 tolerance, as chip_smoke.py's TOL_BF16
+TOL_BF16 = 1e-2
 # memory after init under 4-way sharding: a quarter of the replicated
 # state, plus the norms (replicated on every rank), plus 1% of the
 # replicated state for the batch and the allocator's rounding
@@ -180,10 +191,11 @@ import torch, torch.distributed as dist
 from volcano_tpu_torch.workloads import bootstrap, mesh as mesh_lib
 from volcano_tpu_torch.workloads import model as tm, train as tt
 fa = importlib.import_module("volcano_tpu_torch.workloads.ops.flash_attention")
-axes, layers, dtype, batch, seq, steps = (
+axes, layers, dtype, batch, seq, steps, flags = (
     json.loads(sys.argv[1]), int(sys.argv[2]), getattr(torch, sys.argv[3]),
-    int(sys.argv[4]), int(sys.argv[5]), int(sys.argv[6]))
-cfg = tm.flagship_config(n_layers=layers, dtype=dtype)
+    int(sys.argv[4]), int(sys.argv[5]), int(sys.argv[6]),
+    json.loads(sys.argv[7]))
+cfg = tm.flagship_config(n_layers=layers, dtype=dtype, max_seq=seq, **flags)
 bootstrap.initialize(device="cuda")
 gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)
 opt = tt.make_optimizer()
@@ -238,18 +250,19 @@ dist.destroy_process_group()
 """
 
 
-def _flagship(axes, layers, dtype):
+def _flagship(axes, layers, dtype, flags=None, batch=FLAGSHIP_BATCH,
+              seq=FLAGSHIP_SEQ):
     """RANK_FLAGSHIP over one rank a GPU of the mesh `axes` (one card
-    with no mesh when empty): rank 0's JSON result, with a sixth step's
-    device time by kernel group."""
+    with no mesh when empty), the flagship config with `flags`: rank 0's
+    JSON result, with a sixth step's device time by kernel group."""
     world = 1
     for n in axes.values():
         world *= n
     port = free_port()
     outs = _run(
         [[sys.executable, "-c", RANK_FLAGSHIP, json.dumps(axes), str(layers),
-          dtype, str(FLAGSHIP_BATCH), str(FLAGSHIP_SEQ),
-          str(FLAGSHIP_STEPS)]] * world,
+          dtype, str(batch), str(seq), str(FLAGSHIP_STEPS),
+          json.dumps(flags or {})]] * world,
         [_base_env(TPU_WORKER_ID=r, NUM_PROCESSES=world, LOCAL_RANK=r,
                    COORDINATOR_ADDRESS=f"127.0.0.1:{port}")
          for r in range(world)])
@@ -260,13 +273,17 @@ def _flagship(axes, layers, dtype):
 
 @pytest.fixture(scope="module")
 def one_card():
-    """The one-card step's results, by (layers, dtype), run once each."""
+    """The one-card step's results, by (layers, dtype, flash attention
+    or eager, batch, seq), run once each."""
     cache = {}
 
-    def get(layers, dtype):
-        if (layers, dtype) not in cache:
-            cache[(layers, dtype)] = _flagship({}, layers, dtype)
-        return cache[(layers, dtype)]
+    def get(layers, dtype, flash=True, batch=FLAGSHIP_BATCH,
+            seq=FLAGSHIP_SEQ):
+        key = (layers, dtype, flash, batch, seq)
+        if key not in cache:
+            cache[key] = _flagship({}, layers, dtype,
+                                   {"use_flash_attention": flash}, batch, seq)
+        return cache[key]
 
     return get
 
@@ -308,33 +325,103 @@ def test_flagship_sharded_matches_one_card(axes, layers, dtype, rtol,
     assert got["memory_after_init"] <= bound
 
 
-# -- the flash dispatch on the card --------------------------------------
+# -- the flagship with the sequence over sp, on 4 GPUs --------------------
+
+SP_CASES = [
+    ({"sp": 4}, {"use_ulysses_attention": True}),
+    ({"tp": 2, "sp": 2}, {"use_ulysses_attention": True}),
+    ({"sp": 4}, {"use_ring_attention": True}),
+    ({"fsdp": 2, "sp": 2}, {"use_ring_attention": True}),
+    ({"dp": 2, "sp": 2}, {}),
+]
+SP_IDS = ["sp4_ulysses", "tp2_sp2_ulysses", "sp4_ring", "fsdp2_sp2_ring",
+          "dp2_sp2_gathered"]
+
+
+def _hold_sp(got, ref, layers, rtol, flash):
+    for name in ("losses", "norms"):
+        torch.testing.assert_close(torch.tensor(got[name]),
+                                   torch.tensor(ref[name]),
+                                   rtol=rtol[name], atol=0)
+    # Ulysses launches every flash kernel once a layer a step on each
+    # rank; the ring and the gathered path run the eager attention
+    assert got["launches"] == [layers * FLAGSHIP_STEPS if flash else 0] * 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layers,dtype,rtol", [
+    (8, "bfloat16", RTOL_SP_BF16), (2, "float32", RTOL_FLAGSHIP_F32)],
+    ids=["L8_bf16", "L2_f32"])
+@pytest.mark.parametrize("axes,flags", SP_CASES, ids=SP_IDS)
+def test_flagship_sp_matches_one_card(axes, flags, layers, dtype, rtol,
+                                      one_card):
+    """The flagship d2048 model at global batch 8 x 2048, 5 steps from
+    one set of weights, with the sequence over sp on 4 GPUs: Ulysses
+    (each rank's flash kernels at [8, 2048, 4, 128]) against the
+    one-card flash step, the ring and the gathered path against the
+    one-card eager step (the reference's ring never runs flash); losses
+    and grad norms within rtol (steps 3-5 follow 1-3 real updates, as
+    lr(0) = 0)."""
+    _gpus(4)
+    flash = bool(flags.get("use_ulysses_attention"))
+    got = _flagship(axes, layers, dtype, flags)
+    ref = one_card(layers, dtype, flash)
+    print(json.dumps({"axes": axes, "flags": flags, "layers": layers,
+                      "dtype": dtype, "sp": got, "one_card": ref}))
+    _hold_sp(got, ref, layers, rtol, flash)
+
+
+@pytest.mark.gpu
+def test_long_context_ulysses_matches_one_card(one_card):
+    """Ulysses at t 8192, global batch 2, on 4 GPUs at sp 4 (each rank's
+    flash kernels at [2, 8192, 4, 128]) against the one-card flash step
+    at the same t."""
+    _gpus(4)
+    flags = {"use_ulysses_attention": True}
+    got = _flagship({"sp": 4}, 8, "bfloat16", flags, LONG_BATCH, LONG_SEQ)
+    ref = one_card(8, "bfloat16", True, LONG_BATCH, LONG_SEQ)
+    print(json.dumps({"axes": {"sp": 4}, "flags": flags, "layers": 8,
+                      "dtype": "bfloat16", "batch": LONG_BATCH,
+                      "seq": LONG_SEQ, "sp": got, "one_card": ref}))
+    _hold_sp(got, ref, 8, RTOL_SP_BF16, True)
+
+
+# -- the flash kernels at the shapes they gained ---------------------------
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,dtype,block", [
     ((1, 256, 2, 384), torch.bfloat16, None),
-    ((1, 192, 2, 128), torch.bfloat16, "64")], ids=["d384", "t192_block64"])
+    ((1, 192, 2, 128), torch.bfloat16, "64"),
+    ((1, 256, 2, 512), torch.bfloat16, None),
+    ((1, 197, 2, 128), torch.bfloat16, "197"),
+    ((1, 96, 2, 384), torch.float32, "32")],
+    ids=["d384", "t192_block64", "d512", "t197", "d384_t96_f32"])
 def test_uncovered_shapes_on_cuda_raise(shape, dtype, block, monkeypatch):
-    """Shapes supported() admits and the kernels do not take raise on the
-    card, naming ROADMAP B.4, before any launch and with no fallback to
-    the plain version; a shape the kernels take still launches them."""
+    """Shapes that supported() admits beyond d in {128, 256} and
+    t % 128 == 0 no longer raise on the card: `flash_attention` launches
+    the forward, dQ and dK/dV kernels once each (the launch counts), and
+    its output and gradients equal the plain versions' on the same
+    inputs (bf16 within TOL_BF16, f32 within 1e-4)."""
     _gpus(1)
     fa = importlib.import_module(
         "volcano_tpu_torch.workloads.ops.flash_attention")
     if block:
         monkeypatch.setenv("FLASH_BLOCK", block)
     g = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
-               for _ in range(3))
-    launches = fa.flash_fwd.launches
-    with pytest.raises(ValueError, match="ROADMAP B.4"):
-        fa.flash_attention(q, k, v)
-    assert fa.flash_fwd.launches == launches
-    monkeypatch.delenv("FLASH_BLOCK", raising=False)
-    q, k, v = (torch.randn((1, 256, 2, 128), generator=g,
-                           device="cuda").to(dtype) for _ in range(3))
-    out = fa.flash_attention(q, k, v)
-    assert fa.flash_fwd.launches == launches + 1
-    torch.testing.assert_close(out.float(),
-                               fa._reference(q, k, v, True).float(),
-                               atol=1e-2, rtol=1e-2)
+    q, k, v, do = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+                   for _ in range(4))
+    before = (fa.flash_fwd.launches, fa.flash_bwd.launches_dq,
+              fa.flash_bwd.launches_dkv)
+    tq, tk, tv = (x.clone().requires_grad_() for x in (q, k, v))
+    out = fa.flash_attention(tq, tk, tv)
+    grads = torch.autograd.grad(out, (tq, tk, tv), do)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd.launches_dq,
+            fa.flash_bwd.launches_dkv) == tuple(n + 1 for n in before)
+    ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, True)
+    ref_grads = fa.flash_bwd_plain(q, k, v, ref_out, ref_lse, do, True)
+    tol = TOL_BF16 if dtype == torch.bfloat16 else 1e-4
+    rtol = TOL_BF16 if dtype == torch.bfloat16 else 0.0
+    for got, want in zip((out, *grads), (ref_out, *ref_grads)):
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=rtol)

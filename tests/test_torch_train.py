@@ -295,23 +295,30 @@ def test_synthetic_batch():
 
 
 class _TensorParallelMesh:
-    """What the train step reads of a mesh, with tp = sp = 2: the data
-    axes are ported, tp and sp are not."""
+    """What the forward reads of a mesh, with tp = sp = 2: the axis names
+    and sizes, each axis's group (a stand-in string) and this rank's
+    coordinate on sp."""
     mesh_dim_names = ("dp", "fsdp", "tp", "sp")
     shape = (1, 1, 2, 2)
     ndim = 4
 
+    def get_group(self, axis):
+        return f"group:{axis}"
+
+    def get_local_rank(self, axis):
+        return {"tp": 0, "sp": 1}[axis]
+
 
 def test_mesh_raises_not_implemented():
-    cfg = tm.tiny_config()
-    opt = tt.make_optimizer()
-    with pytest.raises(NotImplementedError):
-        tt.make_train_step(cfg, opt, mesh=_TensorParallelMesh())
-    params = tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    batch = tt.synthetic_batch(torch.Generator().manual_seed(1), cfg, 2, 8)
-    with pytest.raises(NotImplementedError):
-        tt.train_step(params, opt.init(params), batch, cfg, opt,
-                      mesh=_TensorParallelMesh())
+    """tp and sp are ported (tests/test_torch_sharded.py,
+    tests/test_torch_sp.py): a mesh with tp = sp = 2 raises no
+    NotImplementedError, and the forward's axes take its tp and sp
+    groups, their sizes and this rank's block of the sequence."""
+    ax = tm._Axes(_TensorParallelMesh())
+    assert (ax.fsdp, ax.tp, ax.sp) == (None, "group:tp", "group:sp")
+    assert (ax.tp_size, ax.sp_size, ax.sp_rank) == (2, 2, 1)
+    one = tm._Axes()
+    assert (one.sp, one.sp_size, one.sp_rank) == (None, 1, 0)
 
 
 def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch):

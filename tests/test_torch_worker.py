@@ -312,16 +312,20 @@ class _StubMesh:
 @pytest.mark.parametrize("sizes", [dict(fsdp=2, sp=2), dict(sp=2),
                                    dict(dp=2, tp=2, sp=2)])
 def test_tp_and_sp_raise_not_implemented(sizes):
-    """sp > 1 raises (tp is ported: tests/test_torch_sharded.py)."""
-    cfg = tm.tiny_config()
-    opt = tt.make_optimizer()
+    """sp > 1 no longer raises (tp and sp are ported:
+    tests/test_torch_sharded.py, tests/test_torch_sp.py): the last rank's
+    batch spec holds the last rows over the data axes and the last block
+    of the sequence over sp, as the reference's P(data_axes, "sp")."""
     mesh = _StubMesh(**sizes)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.3"):
-        tt.make_train_step(cfg, opt, mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.3"):
-        tt.batch_sharding(mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.3"):
-        tt.init_sharded(torch.Generator(), cfg, mesh, opt)
+    mesh.get_coordinate = lambda: [n - 1 for n in mesh.shape]
+    data = sizes.get("dp", 1) * sizes.get("fsdp", 1)
+    shard = tt.batch_sharding(mesh)
+    assert shard == tt.BatchShard(data - 1, data, sizes["sp"] - 1,
+                                  sizes["sp"])
+    assert shard.rows(4 * data) == slice(4 * data - 4, 4 * data)
+    assert shard.cols(32) == slice(32 - 32 // sizes["sp"], 32)
+    with pytest.raises(ValueError, match="does not divide"):
+        shard.cols(3)
 
 
 def test_batch_shard_rows():

@@ -87,9 +87,23 @@
 // a consumer thread, S^T and dP^T 64 more; their bf16 fragments replace
 // them 16 columns at a time before the second pair of products.
 //
-// f32, both kernels: CUDA-core FMAs in full f32 (TF32 would miss the f32
-// tolerance), 32-row tiles, a quad of threads per row; only the parity
-// checks use them. The f32 dQ kernel writes Delta too.
+// Any t, both bf16 kernels: the last q and k tiles may be partial. TMA
+// fills the rows of q/k/v/dO past t with zeros and the columns of lse and
+// Delta past t too (their rows have a stride ld that is a multiple of 4,
+// as TMA needs); keys past t are masked in dQ's P, and queries past t
+// get a score of -inf in dK/dV's S^T (both on the partial tile only,
+// under a uniform branch: a full tile pays nothing for it); O is read by
+// plain loads only for rows below t; rows past t are never stored, nor
+// are their Delta entries.
+//
+// d > 256 (any multiple of 128), and f32 at every d: CUDA-core kernels
+// (flash_bwd_dq_simt_kernel, flash_bwd_dkv_simt_kernel) in full f32 (TF32
+// would miss the f32 tolerance). A block owns 32 rows (q rows for dQ, k
+// rows for dK/dV) and one 128-column panel of its outputs (grid.z walks
+// the panels); it sums S and dP over the 128-column chunks of d, so each
+// panel's block recomputes them, and keeps only its panel's accumulators.
+// The dQ kernel writes Delta too (the block of panel 0). Speed at
+// d > 256 is later work.
 //
 // q/k/v/dO/O are read in their [b, t, h, d] layout by stride; dQ/dK/dV are
 // written [b, t, h, d] contiguous.
@@ -119,7 +133,8 @@ struct BwdParams {
   long long v_sb, v_st, v_sh;
   long long o_sb, o_st, o_sh;  // dout
   long long out_sb, out_st, out_sh;
-  int B, T, H;
+  int B, T, H, D;
+  int ld;  // row stride of lse and Delta
   int causal;
 };
 
@@ -190,7 +205,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
   const int bh = blockIdx.y, bi = bh / p.H, hi = bh % p.H;
   const int q0 = qt * BQ;
-  const int n_kt = p.causal ? (q0 + BQ) / BK : p.T / BK;
+  // k tiles up to the diagonal (causal) or to t, the last one maybe partial
+  const int k_end = p.causal ? min(q0 + BQ, p.T) : p.T;
+  const int n_kt = (k_end + BK - 1) / BK;
   const int wg = warpgroup_idx();
 
   if (threadIdx.x == 0) {
@@ -237,9 +254,13 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     const int first_row = q0 + 64 * wg, last_row = first_row + 63;
     const float scale = 1.0f / sqrtf((float)D);
     const float sl2 = scale * kLog2e;
-    const long long rb = (long long)bh * p.T;
-    const float ll[2] = {p.lse[rb + row0] * kLog2e,
-                         p.lse[rb + row1] * kLog2e};
+    const long long rb = (long long)bh * p.ld;
+    const bool in0 = row0 < p.T, in1 = row1 < p.T;  // rows past t: not stored
+    const float ll[2] = {in0 ? p.lse[rb + row0] * kLog2e : 0.f,
+                         in1 ? p.lse[rb + row1] * kLog2e : 0.f};
+    // the last key each row sees: its own (causal) and t - 1
+    const int lim[2] = {p.causal ? min(row0, p.T - 1) : p.T - 1,
+                        p.causal ? min(row1, p.T - 1) : p.T - 1};
 
     // Delta = rowsum(dO o O) of rows row0 and row1 in f32. A quad shares
     // a row; thread c takes the 16-byte chunks c and c + 4 of every
@@ -255,9 +276,12 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       for (int pn = 0; pn < NP; ++pn)
 #pragma unroll
         for (int u = 0; u < 2; ++u)
-          ov[r][pn][u] = *reinterpret_cast<const uint4*>(
-              og + (long long)(r ? row1 : row0) * p.out_st + 64 * pn +
-              8 * (c + 4 * u));
+          ov[r][pn][u] = (r ? in1 : in0)
+                             ? *reinterpret_cast<const uint4*>(
+                                   og + (long long)(r ? row1 : row0) *
+                                            p.out_st +
+                                   64 * pn + 8 * (c + 4 * u))
+                             : make_uint4(0u, 0u, 0u, 0u);
     mbar_wait(q_full, 0);
     float dlt[2];
 #pragma unroll
@@ -274,8 +298,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       dlt[r] = quad_sum(acc);
     }
     if (c == 0) {
-      p.delta[rb + row0] = dlt[0];
-      p.delta[rb + row1] = dlt[1];
+      if (in0) p.delta[rb + row0] = dlt[0];
+      if (in1) p.delta[rb + row1] = dlt[1];
     }
 
     float dq[D / 128][64], s[BK / 2], dp[BK / 2];
@@ -327,9 +351,11 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         fence_regs(dp);
 
         // dS = P o (dP - Delta) with P = exp2(S scale log2(e) - lse
-        // log2(e)), masked p exactly 0 (row0 at i % 4 = 0, 1, row1 at 2, 3),
-        // then its bf16 A fragments, the keys [16kc, 16kc + 16) at a time
-        const bool diag = p.causal && k0 + BK - 1 > first_row;
+        // log2(e)), masked p exactly 0 (row0 at i % 4 = 0, 1, row1 at 2, 3)
+        // on the diagonal tile and on a partial last tile, then its bf16 A
+        // fragments, the keys [16kc, 16kc + 16) at a time
+        const bool masking =
+            (p.causal && k0 + BK - 1 > first_row) || k0 + BK > p.T;
         uint32_t ad[BK / 16][4];
 #pragma unroll
         for (int kc = 0; kc < BK / 16; ++kc) {
@@ -337,7 +363,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
           for (int i = 8 * kc; i < 8 * kc + 8; ++i) {
             const int r = (i >> 1) & 1;
             const bool masked =
-                diag && k0 + 8 * (i / 4) + 2 * c + (i & 1) > (r ? row1 : row0);
+                masking && k0 + 8 * (i / 4) + 2 * c + (i & 1) > lim[r];
             const float pv =
                 masked ? 0.f : exp2_approx(fmaf(s[i], sl2, -ll[r]));
             s[i] = pv * (dp[i] - dlt[r]);
@@ -376,12 +402,14 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
         const int col = 128 * h + 8 * j + 2 * c;
-        *reinterpret_cast<uint32_t*>(&dqg[ob0 + col]) =
-            pack_bf16(__float2bfloat16_rn(dq[h][4 * j] * scale),
-                      __float2bfloat16_rn(dq[h][4 * j + 1] * scale));
-        *reinterpret_cast<uint32_t*>(&dqg[ob1 + col]) =
-            pack_bf16(__float2bfloat16_rn(dq[h][4 * j + 2] * scale),
-                      __float2bfloat16_rn(dq[h][4 * j + 3] * scale));
+        if (in0)
+          *reinterpret_cast<uint32_t*>(&dqg[ob0 + col]) =
+              pack_bf16(__float2bfloat16_rn(dq[h][4 * j] * scale),
+                        __float2bfloat16_rn(dq[h][4 * j + 1] * scale));
+        if (in1)
+          *reinterpret_cast<uint32_t*>(&dqg[ob1 + col]) =
+              pack_bf16(__float2bfloat16_rn(dq[h][4 * j + 2] * scale),
+                        __float2bfloat16_rn(dq[h][4 * j + 3] * scale));
       }
     }
   }
@@ -407,7 +435,7 @@ cudaError_t launch_dq_bf16(const BwdParams& p, cudaStream_t stream) {
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              Tile::SMEM);
   if (err != cudaSuccess) return err;
-  dim3 grid(p.T / kDqRows, p.B * p.H);
+  dim3 grid((p.T + kDqRows - 1) / kDqRows, p.B * p.H);
   flash_bwd_dq_bf16_kernel<D><<<grid, kBwdThreads, Tile::SMEM, stream>>>(
       tq, tk, tv, tdo, p);
   return cudaGetLastError();
@@ -456,7 +484,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   const int bh = blockIdx.y, bi = bh / p.H, hi = bh % p.H;
   const int k0 = blockIdx.x * BK;  // heaviest causal tiles (the first) first
   const int qt0 = p.causal ? k0 / BQ : 0;
-  const int n_qt = p.T / BQ - qt0;
+  const int n_qt = (p.T + BQ - 1) / BQ - qt0;  // the last one maybe partial
   const int wg = warpgroup_idx();
 
   if (threadIdx.x == 0) {
@@ -557,6 +585,12 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         // values of a chunk die as its fragments are made
         const float* lse = lse_s + ring.stage * BQ;
         const float* dlt = dlt_s + ring.stage * BQ;
+        // queries past t on a partial last tile: -inf, so their p is 0
+        if (q0 + BQ > p.T) {
+#pragma unroll
+          for (int i = 0; i < BQ / 2; ++i)
+            if (q0 + 8 * (i / 4) + 2 * c + (i & 1) >= p.T) st[i] = -INFINITY;
+        }
         uint32_t ap[BQ / 16][4], ad[BQ / 16][4];
 #pragma unroll
         for (int kc = 0; kc < BQ / 16; ++kc) {
@@ -615,20 +649,26 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     __nv_bfloat16* dvg = static_cast<__nv_bfloat16*>(p.dv);
     const long long ob0 = out_row(p, bi, hi, krow0, D);
     const long long ob1 = out_row(p, bi, hi, krow1, D);
+    const bool in0 = krow0 < p.T, in1 = krow1 < p.T;  // rows past t: not stored
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       const int col = 128 * cw + 8 * j + 2 * c;
-      *reinterpret_cast<uint32_t*>(&dkg[ob0 + col]) =
-          pack_bf16(__float2bfloat16_rn(dk[4 * j] * scale),
-                    __float2bfloat16_rn(dk[4 * j + 1] * scale));
-      *reinterpret_cast<uint32_t*>(&dkg[ob1 + col]) =
-          pack_bf16(__float2bfloat16_rn(dk[4 * j + 2] * scale),
-                    __float2bfloat16_rn(dk[4 * j + 3] * scale));
-      *reinterpret_cast<uint32_t*>(&dvg[ob0 + col]) = pack_bf16(
-          __float2bfloat16_rn(dv[4 * j]), __float2bfloat16_rn(dv[4 * j + 1]));
-      *reinterpret_cast<uint32_t*>(&dvg[ob1 + col]) =
-          pack_bf16(__float2bfloat16_rn(dv[4 * j + 2]),
-                    __float2bfloat16_rn(dv[4 * j + 3]));
+      if (in0) {
+        *reinterpret_cast<uint32_t*>(&dkg[ob0 + col]) =
+            pack_bf16(__float2bfloat16_rn(dk[4 * j] * scale),
+                      __float2bfloat16_rn(dk[4 * j + 1] * scale));
+        *reinterpret_cast<uint32_t*>(&dvg[ob0 + col]) =
+            pack_bf16(__float2bfloat16_rn(dv[4 * j]),
+                      __float2bfloat16_rn(dv[4 * j + 1]));
+      }
+      if (in1) {
+        *reinterpret_cast<uint32_t*>(&dkg[ob1 + col]) =
+            pack_bf16(__float2bfloat16_rn(dk[4 * j + 2] * scale),
+                      __float2bfloat16_rn(dk[4 * j + 3] * scale));
+        *reinterpret_cast<uint32_t*>(&dvg[ob1 + col]) =
+            pack_bf16(__float2bfloat16_rn(dv[4 * j + 2]),
+                      __float2bfloat16_rn(dv[4 * j + 3]));
+      }
     }
   }
 }
@@ -649,97 +689,105 @@ cudaError_t launch_dkv_bf16(const BwdParams& p, cudaStream_t stream) {
     err = map_bthd(&tdo, p.dout, p.B, p.T, p.H, D, p.o_sb, p.o_st, p.o_sh,
                    kDkvQRows);
   if (err == cudaSuccess)
-    err = map_rows_f32(&tl, p.lse, p.B * p.H, p.T, kDkvQRows);
+    err = map_rows_f32(&tl, p.lse, p.B * p.H, p.T, p.ld, kDkvQRows);
   if (err == cudaSuccess)
-    err = map_rows_f32(&td, p.delta, p.B * p.H, p.T, kDkvQRows);
+    err = map_rows_f32(&td, p.delta, p.B * p.H, p.T, p.ld, kDkvQRows);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(flash_bwd_dkv_bf16_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              Tile::SMEM);
   if (err != cudaSuccess) return err;
-  dim3 grid(p.T / Tile::BK, p.B * p.H);
+  dim3 grid((p.T + Tile::BK - 1) / Tile::BK, p.B * p.H);
   flash_bwd_dkv_bf16_kernel<D><<<grid, kBwdThreads, Tile::SMEM, stream>>>(
       tq, tk, tv, tdo, tl, td, p);
   return cudaGetLastError();
 }
 
-// ----------------------------------------------------------------- f32
-// One block: 128 threads, 32 rows; a quad of 4 threads shares a row.
-// Thread (r, c) computes the row's S and dP at columns c + 4i and its
-// outputs at columns c + 4j.
-constexpr int kSimtRows = 32;
-constexpr int kSimtThreads = 128;
+// ----------------------------------------------------------- CUDA cores
+// f32 at every d, bf16 at d > 256. grid (ceil(t / 32), b * h, d / 128): a
+// block of 128 threads owns 32 rows and the 128-column panel blockIdx.z of
+// its outputs; a quad of 4 threads shares a row, thread (r, c) computes
+// the row's S and dP at columns c + 4i and its outputs at panel columns
+// c + 4j.
+constexpr int kDqSimtSmem =
+    4 * (4 * kSimtRows * kPanelLd + kSimtRows * (kSimtRows + 1));
 
-template <int D>
-constexpr int dq_f32_smem() {
-  // Q, dO, K, V [32][D+1], dS [32][33]
-  return 4 * (4 * kSimtRows * (D + 1) + kSimtRows * (kSimtRows + 1));
-}
-
-template <int D>
+template <typename E>
 __global__ void __launch_bounds__(kSimtThreads)
-    flash_bwd_dq_f32_kernel(const BwdParams p) {
-  constexpr int BQ = kSimtRows, BK = kSimtRows, LQ = D + 1, LP = BK + 1;
-  constexpr int NS = BK / 4, NO = D / 4;
+    flash_bwd_dq_simt_kernel(const BwdParams p) {
+  constexpr int BQ = kSimtRows, BK = kSimtRows, LQ = kPanelLd, LP = BK + 1;
+  constexpr int NS = BK / 4, NO = kPanel / 4;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);
+  float* Qs = reinterpret_cast<float*>(smem);  // 128-column chunks
   float* dOs = Qs + BQ * LQ;
-  float* Ks = dOs + BQ * LQ;
+  float* Ks = dOs + BQ * LQ;  // then the block's panel of K
   float* Vs = Ks + BK * LQ;
   float* dSs = Vs + BK * LQ;
 
   const int tid = threadIdx.x, r = tid >> 2, c = tid & 3;
-  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
   const int bh = blockIdx.y, bi = bh / p.H, hi = bh % p.H;
+  const int c0 = blockIdx.z * kPanel, n_ch = p.D / kPanel;
   const int q0 = qt * BQ, row = q0 + r;
-  const float* qg = head<float>(p.q, p.q_sb, p.q_sh, bi, hi);
-  const float* kg = head<float>(p.k, p.k_sb, p.k_sh, bi, hi);
-  const float* vg = head<float>(p.v, p.v_sb, p.v_sh, bi, hi);
-  const float* og = head<float>(p.dout, p.o_sb, p.o_sh, bi, hi);
-  copy_rows<D>(Qs, LQ, qg, p.q_st, q0, BQ, tid, kSimtThreads);
-  copy_rows<D>(dOs, LQ, og, p.o_st, q0, BQ, tid, kSimtThreads);
-  __syncthreads();
+  const bool in = row < p.T;
+  const int lim = p.causal ? min(row, p.T - 1) : p.T - 1;
+  const E* qg = head<E>(p.q, p.q_sb, p.q_sh, bi, hi);
+  const E* kg = head<E>(p.k, p.k_sb, p.k_sh, bi, hi);
+  const E* vg = head<E>(p.v, p.v_sb, p.v_sh, bi, hi);
+  const E* dog = head<E>(p.dout, p.o_sb, p.o_sh, bi, hi);
+  const E* outg = head<E>(p.out, p.out_sb, p.out_sh, bi, hi);
 
-  // Delta = rowsum(dO o O) of this row, a quad of threads sharing it
-  const float* outg = head<float>(p.out, p.out_sb, p.out_sh, bi, hi) +
-                      (long long)row * p.out_st;
+  // Delta = rowsum(dO o O) of this row over all of d, a quad sharing it
   float part = 0.f;
-  for (int j = c; j < D; j += 4) part = fmaf(dOs[r * LQ + j], outg[j], part);
+  if (in)
+    for (int j = c; j < p.D; j += 4)
+      part = fmaf(to_f32(dog[(long long)row * p.o_st + j]),
+                  to_f32(outg[(long long)row * p.out_st + j]), part);
   const float dlt = quad_sum(part);
-  const float scale = 1.0f / sqrtf((float)D);
-  const long long rb = (long long)bh * p.T;
-  if (c == 0) p.delta[rb + row] = dlt;
-  const float lse = p.lse[rb + row];
+  const float scale = 1.0f / sqrtf((float)p.D);
+  const long long rb = (long long)bh * p.ld;
+  if (blockIdx.z == 0 && c == 0 && in) p.delta[rb + row] = dlt;
+  const float lse = in ? p.lse[rb + row] : 0.f;
   float dq[NO];
 #pragma unroll
   for (int j = 0; j < NO; ++j) dq[j] = 0.f;
 
-  const int n_kt = p.causal ? (q0 + BQ - 1) / BK + 1 : p.T / BK;
+  const int k_end = p.causal ? min(q0 + BQ, p.T) : p.T;
+  const int n_kt = (k_end + BK - 1) / BK;
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
-    __syncthreads();
-    copy_rows<D>(Ks, LQ, kg, p.k_st, k0, BK, tid, kSimtThreads);
-    copy_rows<D>(Vs, LQ, vg, p.v_st, k0, BK, tid, kSimtThreads);
-    __syncthreads();
-
     float s[NS], dp[NS];
 #pragma unroll
     for (int i = 0; i < NS; ++i) s[i] = dp[i] = 0.f;
-    for (int dd = 0; dd < D; ++dd) {
-      const float qv = Qs[r * LQ + dd], ov = dOs[r * LQ + dd];
+    for (int ch = 0; ch < n_ch; ++ch) {
+      __syncthreads();  // the previous chunk (or tile) is consumed
+      if (n_ch > 1 || kt == 0) {  // one chunk: Q, dO stay from the first tile
+        load_panel(Qs, qg, p.q_st, q0, ch * kPanel, p.T, tid);
+        load_panel(dOs, dog, p.o_st, q0, ch * kPanel, p.T, tid);
+      }
+      load_panel(Ks, kg, p.k_st, k0, ch * kPanel, p.T, tid);
+      load_panel(Vs, vg, p.v_st, k0, ch * kPanel, p.T, tid);
+      __syncthreads();
+      for (int dd = 0; dd < kPanel; ++dd) {
+        const float qv = Qs[r * LQ + dd], ov = dOs[r * LQ + dd];
 #pragma unroll
-      for (int i = 0; i < NS; ++i) {
-        s[i] = fmaf(qv, Ks[(c + 4 * i) * LQ + dd], s[i]);
-        dp[i] = fmaf(ov, Vs[(c + 4 * i) * LQ + dd], dp[i]);
+        for (int i = 0; i < NS; ++i) {
+          s[i] = fmaf(qv, Ks[(c + 4 * i) * LQ + dd], s[i]);
+          dp[i] = fmaf(ov, Vs[(c + 4 * i) * LQ + dd], dp[i]);
+        }
       }
     }
 #pragma unroll
     for (int i = 0; i < NS; ++i) {
-      const bool masked = p.causal && k0 + c + 4 * i > row;
+      const bool masked = k0 + c + 4 * i > lim;  // causal, and keys past t
       const float pv = masked ? 0.f : expf(s[i] * scale - lse);
       dSs[r * LP + c + 4 * i] = pv * (dp[i] - dlt);
     }
-    __syncwarp();  // the row's dS comes from the 4 lanes of this quad
+    if (n_ch > 1) {  // one chunk: K's chunk is the panel
+      __syncthreads();
+      load_panel(Ks, kg, p.k_st, k0, c0, p.T, tid);
+    }
+    __syncthreads();  // K's panel, and the row's dS from its quad
     for (int kk = 0; kk < BK; ++kk) {
       const float ds = dSs[r * LP + kk];
 #pragma unroll
@@ -748,27 +796,24 @@ __global__ void __launch_bounds__(kSimtThreads)
     }
   }
 
-  float* dqg = static_cast<float*>(p.dq) + out_row(p, bi, hi, row, D);
+  if (!in) return;
+  E* dqg = static_cast<E*>(p.dq) + out_row(p, bi, hi, row, p.D) + c0;
 #pragma unroll
-  for (int j = 0; j < NO; ++j) dqg[c + 4 * j] = dq[j] * scale;
+  for (int j = 0; j < NO; ++j) store_f32(&dqg[c + 4 * j], dq[j] * scale);
 }
 
-template <int D>
-constexpr int dkv_f32_smem() {
-  // K, V, Q, dO [32][D+1], lse and Delta [32], P^T and dS^T [32][33]
-  return 4 * (4 * kSimtRows * (D + 1) + 2 * kSimtRows +
-              2 * kSimtRows * (kSimtRows + 1));
-}
+constexpr int kDkvSimtSmem = 4 * (4 * kSimtRows * kPanelLd + 2 * kSimtRows +
+                                  2 * kSimtRows * (kSimtRows + 1));
 
-template <int D>
+template <typename E>
 __global__ void __launch_bounds__(kSimtThreads)
-    flash_bwd_dkv_f32_kernel(const BwdParams p) {
-  constexpr int BQ = kSimtRows, BK = kSimtRows, LQ = D + 1, LP = BQ + 1;
-  constexpr int NS = BQ / 4, NO = D / 4;
+    flash_bwd_dkv_simt_kernel(const BwdParams p) {
+  constexpr int BQ = kSimtRows, BK = kSimtRows, LQ = kPanelLd, LP = BQ + 1;
+  constexpr int NS = BQ / 4, NO = kPanel / 4;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* Ks = reinterpret_cast<float*>(smem);
+  float* Ks = reinterpret_cast<float*>(smem);  // 128-column chunks
   float* Vs = Ks + BK * LQ;
-  float* Qs = Vs + BK * LQ;
+  float* Qs = Vs + BK * LQ;  // chunks, then the block's panels of Q, dO
   float* dOs = Qs + BQ * LQ;
   float* lse_s = dOs + BQ * LQ;
   float* dlt_s = lse_s + BQ;
@@ -776,54 +821,65 @@ __global__ void __launch_bounds__(kSimtThreads)
   float* dSs = Ps + BK * LP;
 
   const int tid = threadIdx.x, r = tid >> 2, c = tid & 3;
-  const int kt = blockIdx.x;
   const int bh = blockIdx.y, bi = bh / p.H, hi = bh % p.H;
-  const int k0 = kt * BK, krow = k0 + r;
-  const float* qg = head<float>(p.q, p.q_sb, p.q_sh, bi, hi);
-  const float* kg = head<float>(p.k, p.k_sb, p.k_sh, bi, hi);
-  const float* vg = head<float>(p.v, p.v_sb, p.v_sh, bi, hi);
-  const float* og = head<float>(p.dout, p.o_sb, p.o_sh, bi, hi);
-  copy_rows<D>(Ks, LQ, kg, p.k_st, k0, BK, tid, kSimtThreads);
-  copy_rows<D>(Vs, LQ, vg, p.v_st, k0, BK, tid, kSimtThreads);
+  const int c0 = blockIdx.z * kPanel, n_ch = p.D / kPanel;
+  const int k0 = blockIdx.x * BK, krow = k0 + r;
+  const E* qg = head<E>(p.q, p.q_sb, p.q_sh, bi, hi);
+  const E* kg = head<E>(p.k, p.k_sb, p.k_sh, bi, hi);
+  const E* vg = head<E>(p.v, p.v_sb, p.v_sh, bi, hi);
+  const E* dog = head<E>(p.dout, p.o_sb, p.o_sh, bi, hi);
 
-  const float scale = 1.0f / sqrtf((float)D);
-  const long long rb = (long long)bh * p.T;
+  const float scale = 1.0f / sqrtf((float)p.D);
+  const long long rb = (long long)bh * p.ld;
   float dk[NO], dv[NO];
 #pragma unroll
   for (int j = 0; j < NO; ++j) dk[j] = dv[j] = 0.f;
 
   const int qt0 = p.causal ? k0 / BQ : 0;
-  for (int qt = qt0; qt < p.T / BQ; ++qt) {
+  const int n_qt = (p.T + BQ - 1) / BQ;
+  for (int qt = qt0; qt < n_qt; ++qt) {
     const int q0 = qt * BQ;
-    __syncthreads();
-    copy_rows<D>(Qs, LQ, qg, p.q_st, q0, BQ, tid, kSimtThreads);
-    copy_rows<D>(dOs, LQ, og, p.o_st, q0, BQ, tid, kSimtThreads);
-    if (tid < BQ)
-      lse_s[tid] = p.lse[rb + q0 + tid];
-    else if (tid < 2 * BQ)
-      dlt_s[tid - BQ] = p.delta[rb + q0 + tid - BQ];
-    __syncthreads();
-
     float s[NS], dp[NS];
 #pragma unroll
     for (int i = 0; i < NS; ++i) s[i] = dp[i] = 0.f;
-    for (int dd = 0; dd < D; ++dd) {
-      const float kv = Ks[r * LQ + dd], vv = Vs[r * LQ + dd];
+    for (int ch = 0; ch < n_ch; ++ch) {
+      __syncthreads();  // the previous chunk (or tile) is consumed
+      if (n_ch > 1 || qt == qt0) {  // one chunk: K, V stay from the first
+        load_panel(Ks, kg, p.k_st, k0, ch * kPanel, p.T, tid);
+        load_panel(Vs, vg, p.v_st, k0, ch * kPanel, p.T, tid);
+      }
+      load_panel(Qs, qg, p.q_st, q0, ch * kPanel, p.T, tid);
+      load_panel(dOs, dog, p.o_st, q0, ch * kPanel, p.T, tid);
+      if (ch == 0 && tid < 2 * BQ) {
+        const int q = q0 + tid % BQ;
+        const float* src = tid < BQ ? p.lse : p.delta;
+        (tid < BQ ? lse_s : dlt_s)[tid % BQ] = q < p.T ? src[rb + q] : 0.f;
+      }
+      __syncthreads();
+      for (int dd = 0; dd < kPanel; ++dd) {
+        const float kv = Ks[r * LQ + dd], vv = Vs[r * LQ + dd];
 #pragma unroll
-      for (int i = 0; i < NS; ++i) {
-        s[i] = fmaf(kv, Qs[(c + 4 * i) * LQ + dd], s[i]);
-        dp[i] = fmaf(vv, dOs[(c + 4 * i) * LQ + dd], dp[i]);
+        for (int i = 0; i < NS; ++i) {
+          s[i] = fmaf(kv, Qs[(c + 4 * i) * LQ + dd], s[i]);
+          dp[i] = fmaf(vv, dOs[(c + 4 * i) * LQ + dd], dp[i]);
+        }
       }
     }
 #pragma unroll
     for (int i = 0; i < NS; ++i) {
       const int qc = c + 4 * i;
-      const bool masked = p.causal && q0 + qc < krow;
+      // causal, and queries past t
+      const bool masked = (p.causal && q0 + qc < krow) || q0 + qc >= p.T;
       const float pv = masked ? 0.f : expf(s[i] * scale - lse_s[qc]);
       Ps[r * LP + qc] = pv;
       dSs[r * LP + qc] = pv * (dp[i] - dlt_s[qc]);
     }
-    __syncwarp();  // the row's P^T and dS^T come from this quad
+    if (n_ch > 1) {  // one chunk: Q's and dO's chunks are the panels
+      __syncthreads();
+      load_panel(Qs, qg, p.q_st, q0, c0, p.T, tid);
+      load_panel(dOs, dog, p.o_st, q0, c0, p.T, tid);
+    }
+    __syncthreads();  // the panels, and the row's P^T and dS^T from its quad
     for (int qq = 0; qq < BQ; ++qq) {
       const float pv = Ps[r * LP + qq], ds = dSs[r * LP + qq];
 #pragma unroll
@@ -834,30 +890,32 @@ __global__ void __launch_bounds__(kSimtThreads)
     }
   }
 
-  const long long ob = out_row(p, bi, hi, krow, D);
-  float* dkg = static_cast<float*>(p.dk) + ob;
-  float* dvg = static_cast<float*>(p.dv) + ob;
+  if (krow >= p.T) return;  // rows past t are not stored
+  const long long ob = out_row(p, bi, hi, krow, p.D) + c0;
+  E* dkg = static_cast<E*>(p.dk) + ob;
+  E* dvg = static_cast<E*>(p.dv) + ob;
 #pragma unroll
   for (int j = 0; j < NO; ++j) {
-    dkg[c + 4 * j] = dk[j] * scale;
-    dvg[c + 4 * j] = dv[j];
+    store_f32(&dkg[c + 4 * j], dk[j] * scale);
+    store_f32(&dvg[c + 4 * j], dv[j]);
   }
 }
 
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, int rows, int threads, int smem,
-                   const BwdParams& p, cudaStream_t stream) {
+cudaError_t launch_simt(Kernel kernel, int smem, const BwdParams& p,
+                        cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(p.T / rows, p.B * p.H);
-  kernel<<<grid, threads, smem, stream>>>(p);
+  dim3 grid((p.T + kSimtRows - 1) / kSimtRows, p.B * p.H, p.D / kPanel);
+  kernel<<<grid, kSimtThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 BwdParams make_params(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, void* delta, int B,
-                      int T, int H, int causal, const long long* st) {
+                      int T, int H, int D, int ld, int causal,
+                      const long long* st) {
   BwdParams p{};
   p.q = q;
   p.k = k;
@@ -869,7 +927,8 @@ BwdParams make_params(const void* q, const void* k, const void* v,
   p.k_sb = st[3], p.k_st = st[4], p.k_sh = st[5];
   p.v_sb = st[6], p.v_st = st[7], p.v_sh = st[8];
   p.o_sb = st[9], p.o_st = st[10], p.o_sh = st[11];
-  p.B = B, p.T = T, p.H = H;
+  p.B = B, p.T = T, p.H = H, p.D = D;
+  p.ld = ld;
   p.causal = causal;
   return p;
 }
@@ -878,33 +937,34 @@ BwdParams make_params(const void* q, const void* k, const void* v,
 
 // q/k/v/dout (and out, for dQ): [B, T, H, D] with the given (batch, seq,
 // head) strides in elements (in that order, 3 a tensor) and unit stride
-// over D; lse and delta: [B, H, T] f32 contiguous; dq/dk/dv: [B, T, H, D]
-// contiguous in the input dtype. dtype: 0 = f32, 1 = bf16. The caller
-// guarantees D in {128, 256}, T % 128 == 0, 16-byte aligned starts and
-// (batch, seq, head) strides that are multiples of 16 bytes. Each returns
-// cudaGetLastError() after its launch (0 on success).
+// over D; lse and delta: [B, H, T] f32 with row stride ld; dq/dk/dv:
+// [B, T, H, D] contiguous in the input dtype. dtype: 0 = f32, 1 = bf16.
+// The caller guarantees T >= 1, D a positive multiple of 128, ld >= T a
+// multiple of 4, 16-byte aligned starts and (batch, seq, head) strides
+// that are multiples of 16 bytes. Each returns cudaGetLastError() after
+// its launch (0 on success).
 //
 // dQ, and Delta = rowsum(dO o O) into `delta` for the dK/dV kernel.
 extern "C" int vtp_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* out,
                                 const void* lse, void* delta, void* dq,
-                                int B, int T, int H, int D, int dtype,
+                                int B, int T, int H, int D, int ld, int dtype,
                                 int causal, const long long* strides,
                                 void* stream) {
-  BwdParams p = make_params(q, k, v, dout, lse, delta, B, T, H, causal,
-                            strides);
+  BwdParams p = make_params(q, k, v, dout, lse, delta, B, T, H, D, ld,
+                            causal, strides);
   p.out = out;
   p.out_sb = strides[12], p.out_st = strides[13], p.out_sh = strides[14];
   p.dq = dq;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (T < 1 || D < kPanel || D % kPanel) return cudaErrorInvalidValue;
   if (dtype == 1 && D == 128) return launch_dq_bf16<128>(p, s);
   if (dtype == 1 && D == 256) return launch_dq_bf16<256>(p, s);
-  if (dtype == 0 && D == 128)
-    return launch(flash_bwd_dq_f32_kernel<128>, kSimtRows, kSimtThreads,
-                  dq_f32_smem<128>(), p, s);
-  if (dtype == 0 && D == 256)
-    return launch(flash_bwd_dq_f32_kernel<256>, kSimtRows, kSimtThreads,
-                  dq_f32_smem<256>(), p, s);
+  if (dtype == 1)
+    return launch_simt(flash_bwd_dq_simt_kernel<__nv_bfloat16>, kDqSimtSmem,
+                       p, s);
+  if (dtype == 0)
+    return launch_simt(flash_bwd_dq_simt_kernel<float>, kDqSimtSmem, p, s);
   return cudaErrorInvalidValue;
 }
 
@@ -913,20 +973,20 @@ extern "C" int vtp_flash_bwd_dkv(const void* q, const void* k,
                                  const void* v, const void* dout,
                                  const void* lse, void* delta,
                                  void* dk, void* dv, int B, int T, int H,
-                                 int D, int dtype, int causal,
+                                 int D, int ld, int dtype, int causal,
                                  const long long* strides, void* stream) {
-  BwdParams p = make_params(q, k, v, dout, lse, delta, B, T, H, causal,
-                            strides);
+  BwdParams p = make_params(q, k, v, dout, lse, delta, B, T, H, D, ld,
+                            causal, strides);
   p.dk = dk;
   p.dv = dv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (T < 1 || D < kPanel || D % kPanel) return cudaErrorInvalidValue;
   if (dtype == 1 && D == 128) return launch_dkv_bf16<128>(p, s);
   if (dtype == 1 && D == 256) return launch_dkv_bf16<256>(p, s);
-  if (dtype == 0 && D == 128)
-    return launch(flash_bwd_dkv_f32_kernel<128>, kSimtRows, kSimtThreads,
-                  dkv_f32_smem<128>(), p, s);
-  if (dtype == 0 && D == 256)
-    return launch(flash_bwd_dkv_f32_kernel<256>, kSimtRows, kSimtThreads,
-                  dkv_f32_smem<256>(), p, s);
+  if (dtype == 1)
+    return launch_simt(flash_bwd_dkv_simt_kernel<__nv_bfloat16>,
+                       kDkvSimtSmem, p, s);
+  if (dtype == 0)
+    return launch_simt(flash_bwd_dkv_simt_kernel<float>, kDkvSimtSmem, p, s);
   return cudaErrorInvalidValue;
 }

@@ -44,10 +44,24 @@
 //    ping-pong, and a warpgroup's softmax does not overlap its own
 //    products. out is written from registers, not through shared memory
 //    and a TMA store.
-//  * f32: CUDA-core FMAs in full f32 (a tensor-core path would need TF32,
-//    whose 10-bit mantissa misses the f32 tolerance), 32-row tiles, plain
-//    loads; only the parity checks use it.
-//  * out is written [b, t, h, d] contiguous and lse [b, h, t] f32.
+//  * Any t: the last q and k tiles may be partial. TMA fills the rows
+//    past t with zeros; keys past t are masked: in the causal case by the
+//    causal mask (every stored row lies below t), in the full case by a
+//    score of -inf on the partial last tile only (a pass under a uniform
+//    branch: a full tile pays nothing for it; folding it into the causal
+//    mask's test cost 3% at the flagship shape, PERF.md); rows past t are
+//    never stored, nor are their lse entries.
+//  * d > 256 (any multiple of 128), and f32 at every d: a CUDA-core
+//    kernel (flash_fwd_simt_kernel). A block owns 32 q rows and one
+//    128-column panel of out (grid.z walks the panels); it sums S over
+//    the 128-column chunks of d, so a block of each panel recomputes S,
+//    and it keeps only its panel's 32 accumulators a thread. FMAs in full
+//    f32 (a tensor-core f32 path would need TF32, whose 10-bit mantissa
+//    misses the f32 tolerance). At d > 256 the wgmma design's O
+//    accumulator would need 192 or more registers a thread; speed at
+//    those shapes is later work.
+//  * out is written [b, t, h, d] contiguous and lse [b, h, t] f32 with
+//    row stride ld (a multiple of 4, for the backward's TMA).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,7 +81,8 @@ struct FwdParams {
   long long q_sb, q_st, q_sh;
   long long k_sb, k_st, k_sh;
   long long v_sb, v_st, v_sh;
-  int B, T, H;
+  int B, T, H, D;
+  int ld;  // row stride of lse
   int causal;
 };
 
@@ -109,7 +124,9 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
   const int bh = blockIdx.y, bi = bh / p.H, hi = bh % p.H;
   const int q0 = qt * kFwdRows;
-  const int n_kt = p.causal ? (q0 + kFwdRows) / BK : p.T / BK;
+  // k tiles up to the diagonal (causal) or to t, the last one maybe partial
+  const int k_end = p.causal ? min(q0 + kFwdRows, p.T) : p.T;
+  const int n_kt = (k_end + BK - 1) / BK;
   const int wg = warpgroup_idx();
 
   if (threadIdx.x == 0) {
@@ -188,6 +205,14 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
         wgmma_wait<0>();
         fence_regs(s);
 
+        // keys past t on a partial last tile of the full case (causal rows
+        // below t never reach them): -inf, which scales to -inf, so their
+        // p is 0 as for the masked scores below
+        if (!p.causal && k0 + BK > p.T) {
+#pragma unroll
+          for (int i = 0; i < BK / 2; ++i)
+            if (k0 + 8 * (i / 4) + 2 * c + (i & 1) >= p.T) s[i] = -INFINITY;
+        }
         // scale, mask, online softmax (rows row0: e = 0, 1; row1: 2, 3)
         float mb[2] = {kNegInf, kNegInf};
 #pragma unroll
@@ -255,9 +280,11 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
       mbar_arrive(&empty[ring.stage]);
     }
 
+    // rows past t are not stored
     __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.out);
     const float l0 = l[0] == 0.f ? 1.f : l[0];
     const float l1 = l[1] == 0.f ? 1.f : l[1];
+    const bool in0 = row0 < p.T, in1 = row1 < p.T;
     const long long ob0 = ((long long)(bi * p.T + row0) * p.H + hi) * D;
     const long long ob1 = ((long long)(bi * p.T + row1) * p.H + hi) * D;
 #pragma unroll
@@ -265,17 +292,19 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
         const int col = 128 * h + 8 * j + 2 * c;
-        *reinterpret_cast<uint32_t*>(&og[ob0 + col]) =
-            pack_bf16(__float2bfloat16_rn(o[h][4 * j] / l0),
-                      __float2bfloat16_rn(o[h][4 * j + 1] / l0));
-        *reinterpret_cast<uint32_t*>(&og[ob1 + col]) =
-            pack_bf16(__float2bfloat16_rn(o[h][4 * j + 2] / l1),
-                      __float2bfloat16_rn(o[h][4 * j + 3] / l1));
+        if (in0)
+          *reinterpret_cast<uint32_t*>(&og[ob0 + col]) =
+              pack_bf16(__float2bfloat16_rn(o[h][4 * j] / l0),
+                        __float2bfloat16_rn(o[h][4 * j + 1] / l0));
+        if (in1)
+          *reinterpret_cast<uint32_t*>(&og[ob1 + col]) =
+              pack_bf16(__float2bfloat16_rn(o[h][4 * j + 2] / l1),
+                        __float2bfloat16_rn(o[h][4 * j + 3] / l1));
       }
     }
     if (c == 0) {
-      p.lse[(long long)bh * p.T + row0] = m[0] * kLn2 + logf(l0);
-      p.lse[(long long)bh * p.T + row1] = m[1] * kLn2 + logf(l1);
+      if (in0) p.lse[(long long)bh * p.ld + row0] = m[0] * kLn2 + logf(l0);
+      if (in1) p.lse[(long long)bh * p.ld + row1] = m[1] * kLn2 + logf(l1);
     }
   }
 }
@@ -296,78 +325,73 @@ cudaError_t launch_bf16(const FwdParams& p, cudaStream_t stream) {
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              FwdTile<D>::SMEM);
   if (err != cudaSuccess) return err;
-  dim3 grid(p.T / kFwdRows, p.B * p.H);
+  dim3 grid((p.T + kFwdRows - 1) / kFwdRows, p.B * p.H);
   flash_fwd_bf16_kernel<D>
       <<<grid, kFwdThreads, FwdTile<D>::SMEM, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();
 }
 
-// ----------------------------------------------------------------- f32
-// One block: 128 threads, 32 q rows; a quad of 4 threads shares a row.
-// Thread (r, c) computes S columns c + 4i and O columns c + 4j.
-constexpr int kSimtRows = 32;
-constexpr int kSimtThreads = 128;
+// ----------------------------------------------------------- CUDA cores
+// f32 at every d, bf16 at d > 256. grid (ceil(t / 32), b * h, d / 128): a
+// block of 128 threads owns 32 q rows and the 128-column panel
+// blockIdx.z of out; a quad of 4 threads shares a row, thread (r, c)
+// computes S columns c + 4i and out columns c + 4j of the panel.
+constexpr int kSimtSmem =
+    4 * (3 * kSimtRows * kPanelLd + kSimtRows * (kSimtRows + 1));
 
-template <int D>
-constexpr int simt_smem_bytes() {
-  // Q [32][D+1], K [32][D+1], V [32][D], P [32][33]
-  return 4 * (2 * kSimtRows * (D + 1) + kSimtRows * D +
-              kSimtRows * (kSimtRows + 1));
-}
-
-template <int D>
+template <typename E>
 __global__ void __launch_bounds__(kSimtThreads)
-    flash_fwd_f32_kernel(const FwdParams p) {
-  constexpr int BQ = kSimtRows, BK = kSimtRows, LQ = D + 1, LP = BK + 1;
-  constexpr int NS = BK / 4, NO = D / 4;
+    flash_fwd_simt_kernel(const FwdParams p) {
+  constexpr int BQ = kSimtRows, BK = kSimtRows, LQ = kPanelLd, LP = BK + 1;
+  constexpr int NS = BK / 4, NO = kPanel / 4;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);
-  float* Ks = Qs + BQ * LQ;
-  float* Vs = Ks + BK * LQ;
-  float* Ps = Vs + BK * D;
+  float* Qs = reinterpret_cast<float*>(smem);  // a 128-column chunk of Q
+  float* Ks = Qs + BQ * LQ;                     // the same chunk of K
+  float* Vs = Ks + BK * LQ;                     // the block's panel of V
+  float* Ps = Vs + BK * LQ;
 
   const int tid = threadIdx.x, r = tid >> 2, c = tid & 3;
-  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
   const int bh = blockIdx.y, bi = bh / p.H, hi = bh % p.H;
+  const int c0 = blockIdx.z * kPanel, n_ch = p.D / kPanel;
   const int q0 = qt * BQ, row = q0 + r;
-  const float* qg = static_cast<const float*>(p.q) + bi * p.q_sb + hi * p.q_sh;
-  const float* kg = static_cast<const float*>(p.k) + bi * p.k_sb + hi * p.k_sh;
-  const float* vg = static_cast<const float*>(p.v) + bi * p.v_sb + hi * p.v_sh;
+  const int lim = p.causal ? min(row, p.T - 1) : p.T - 1;
+  const E* qg = static_cast<const E*>(p.q) + bi * p.q_sb + hi * p.q_sh;
+  const E* kg = static_cast<const E*>(p.k) + bi * p.k_sb + hi * p.k_sh;
+  const E* vg = static_cast<const E*>(p.v) + bi * p.v_sb + hi * p.v_sh;
 
-  for (int i = tid; i < BQ * D; i += kSimtThreads)
-    Qs[(i / D) * LQ + i % D] = qg[(q0 + i / D) * p.q_st + i % D];
-
-  const float scale = 1.0f / sqrtf((float)D);
+  const float scale = 1.0f / sqrtf((float)p.D);
   float o[NO];
 #pragma unroll
   for (int j = 0; j < NO; ++j) o[j] = 0.f;
   float m = kNegInf, l = 0.f;
 
-  const int n_kt = p.causal ? (q0 + BQ - 1) / BK + 1 : p.T / BK;
+  const int k_end = p.causal ? min(q0 + BQ, p.T) : p.T;
+  const int n_kt = (k_end + BK - 1) / BK;
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
-    __syncthreads();
-    for (int i = tid; i < BK * D; i += kSimtThreads) {
-      const int kr = i / D, col = i % D;
-      Ks[kr * LQ + col] = kg[(k0 + kr) * p.k_st + col];
-      Vs[kr * D + col] = vg[(k0 + kr) * p.v_st + col];
-    }
-    __syncthreads();
-
     float s[NS];
 #pragma unroll
     for (int i = 0; i < NS; ++i) s[i] = 0.f;
-    for (int dd = 0; dd < D; ++dd) {
-      const float qv = Qs[r * LQ + dd];
+    for (int ch = 0; ch < n_ch; ++ch) {
+      __syncthreads();  // the previous chunk (or tile) is consumed
+      if (n_ch > 1 || kt == 0)  // one chunk: Q stays from the first tile
+        load_panel(Qs, qg, p.q_st, q0, ch * kPanel, p.T, tid);
+      load_panel(Ks, kg, p.k_st, k0, ch * kPanel, p.T, tid);
+      __syncthreads();
+      for (int dd = 0; dd < kPanel; ++dd) {
+        const float qv = Qs[r * LQ + dd];
 #pragma unroll
-      for (int i = 0; i < NS; ++i)
-        s[i] = fmaf(qv, Ks[(c + 4 * i) * LQ + dd], s[i]);
+        for (int i = 0; i < NS; ++i)
+          s[i] = fmaf(qv, Ks[(c + 4 * i) * LQ + dd], s[i]);
+      }
     }
+    load_panel(Vs, vg, p.v_st, k0, c0, p.T, tid);
     float mb = kNegInf;
 #pragma unroll
     for (int i = 0; i < NS; ++i) {
       float x = s[i] * scale;
-      if (p.causal && k0 + c + 4 * i > row) x = kNegInf;
+      if (k0 + c + 4 * i > lim) x = kNegInf;  // causal, and keys past t
       s[i] = x;
       mb = fmaxf(mb, x);
     }
@@ -382,33 +406,35 @@ __global__ void __launch_bounds__(kSimtThreads)
     }
     l = l * corr + quad_sum(ls);
     m = mn;
-    __syncwarp();  // the row's P comes from the 4 lanes of this quad
+    __syncthreads();  // V's panel, and the row's P from its quad
 #pragma unroll
     for (int j = 0; j < NO; ++j) o[j] *= corr;
     for (int kk = 0; kk < BK; ++kk) {
       const float pv = Ps[r * LP + kk];
 #pragma unroll
       for (int j = 0; j < NO; ++j)
-        o[j] = fmaf(pv, Vs[kk * D + c + 4 * j], o[j]);
+        o[j] = fmaf(pv, Vs[kk * LQ + c + 4 * j], o[j]);
     }
   }
 
-  float* og = static_cast<float*>(p.out) +
-              ((long long)(bi * p.T + row) * p.H + hi) * D;
+  if (row >= p.T) return;  // rows past t are not stored
+  E* og = static_cast<E*>(p.out) +
+          ((long long)(bi * p.T + row) * p.H + hi) * p.D + c0;
   const float sl = l == 0.f ? 1.f : l;
 #pragma unroll
-  for (int j = 0; j < NO; ++j) og[c + 4 * j] = o[j] / sl;
-  if (c == 0) p.lse[(long long)bh * p.T + row] = m + logf(sl);
+  for (int j = 0; j < NO; ++j) store_f32(&og[c + 4 * j], o[j] / sl);
+  if (blockIdx.z == 0 && c == 0)
+    p.lse[(long long)bh * p.ld + row] = m + logf(sl);
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, int rows, int threads, int smem,
-                   const FwdParams& p, cudaStream_t stream) {
+template <typename E>
+cudaError_t launch_simt(const FwdParams& p, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_simt_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSimtSmem);
   if (err != cudaSuccess) return err;
-  dim3 grid(p.T / rows, p.B * p.H);
-  kernel<<<grid, threads, smem, stream>>>(p);
+  dim3 grid((p.T + kSimtRows - 1) / kSimtRows, p.B * p.H, p.D / kPanel);
+  flash_fwd_simt_kernel<E><<<grid, kSimtThreads, kSimtSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -416,29 +442,28 @@ cudaError_t launch(Kernel kernel, int rows, int threads, int smem,
 
 // q/k/v: [B, T, H, D] with the given (batch, seq, head) strides in
 // elements and unit stride over D; out: [B, T, H, D] contiguous in the
-// input dtype; lse: [B, H, T] f32. dtype: 0 = f32, 1 = bf16. The caller
-// guarantees D in {128, 256}, T % 128 == 0, a 16-byte aligned
-// start and (batch, seq, head) strides that are multiples of 16 bytes.
-// Returns cudaGetLastError() after the launch (0 on success).
+// input dtype; lse: [B, H, T] f32 with row stride ld. dtype: 0 = f32,
+// 1 = bf16. The caller guarantees T >= 1, D a positive multiple of 128,
+// ld >= T a multiple of 4, 16-byte aligned starts and (batch, seq, head)
+// strides that are multiples of 16 bytes. Returns cudaGetLastError()
+// after the launch (0 on success).
 extern "C" int vtp_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, int B, int T, int H,
-                             int D, int dtype, int causal, long long q_sb,
-                             long long q_st, long long q_sh, long long k_sb,
-                             long long k_st, long long k_sh, long long v_sb,
-                             long long v_st, long long v_sh, void* stream) {
+                             int D, int ld, int dtype, int causal,
+                             long long q_sb, long long q_st, long long q_sh,
+                             long long k_sb, long long k_st, long long k_sh,
+                             long long v_sb, long long v_st, long long v_sh,
+                             void* stream) {
   FwdParams p{q,    k,    v,    out,  static_cast<float*>(lse),
               q_sb, q_st, q_sh, k_sb, k_st,
               k_sh, v_sb, v_st, v_sh, B,
-              T,    H,    causal};
+              T,    H,    D,    ld,   causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (T < 1 || D < kPanel || D % kPanel) return cudaErrorInvalidValue;
   if (dtype == 1 && D == 128) return launch_bf16<128>(p, s);
   if (dtype == 1 && D == 256) return launch_bf16<256>(p, s);
-  if (dtype == 0 && D == 128)
-    return launch(flash_fwd_f32_kernel<128>, kSimtRows, kSimtThreads,
-                  simt_smem_bytes<128>(), p, s);
-  if (dtype == 0 && D == 256)
-    return launch(flash_fwd_f32_kernel<256>, kSimtRows, kSimtThreads,
-                  simt_smem_bytes<256>(), p, s);
+  if (dtype == 1) return launch_simt<__nv_bfloat16>(p, s);
+  if (dtype == 0) return launch_simt<float>(p, s);
   return cudaErrorInvalidValue;
 }
 

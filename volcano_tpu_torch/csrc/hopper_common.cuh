@@ -447,8 +447,9 @@ inline EncodeTiledFn encode_tiled() {
 // Tensor map of a bf16 [B, T, H, D] tensor with (batch, seq, head) strides
 // in elements and unit stride over D, as the rank-4 (D, H, T, B) tensor;
 // a box is one 64-column panel of `rows` rows of one (batch, head),
-// 128-byte swizzled. The caller guarantees a 16-byte aligned base and
-// strides that are multiples of 8 elements.
+// 128-byte swizzled; rows at or past T come in as zeros (the partial
+// last tile of a T that the tile does not divide). The caller guarantees
+// a 16-byte aligned base and strides that are multiples of 8 elements.
 inline cudaError_t map_bthd(CUtensorMap* map, const void* base, int B, int T,
                             int H, int D, long long sb, long long st,
                             long long sh, int rows) {
@@ -469,14 +470,16 @@ inline cudaError_t map_bthd(CUtensorMap* map, const void* base, int B, int T,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// Tensor map of an f32 [R, T] row-major tensor (lse, Delta as [B*H, T]);
-// a box is `cols` consecutive values of one row, unswizzled.
+// Tensor map of an f32 [R, T] tensor with row stride ld (lse, Delta as
+// [B*H, T]; TMA needs ld % 4 == 0, so for T % 4 != 0 the rows are
+// padded); a box is `cols` consecutive values of one row, unswizzled, and
+// columns at or past T come in as zeros.
 inline cudaError_t map_rows_f32(CUtensorMap* map, const void* base, int R,
-                                int T, int cols) {
+                                int T, int ld, int cols) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)T, (cuuint64_t)R};
-  const cuuint64_t strides[1] = {(cuuint64_t)T * 4};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 4};
   const cuuint32_t box[2] = {(cuuint32_t)cols, 1};
   const cuuint32_t unit[2] = {1, 1};
   CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,

@@ -1,6 +1,6 @@
 // Helpers shared by the flash-attention kernels: bf16 packing, the
 // conversion of f32 wgmma accumulators into bf16 A fragments, the quad
-// reductions and the f32 kernels' row copies.
+// reductions, and the tiles of the CUDA-core kernels.
 //
 // The A fragment of an m64nNk16 register-A wgmma has the mma.sync
 // m16n8k16 A layout (PTX ISA): lane = 4*g + c holds rows g and g+8 of its
@@ -51,16 +51,37 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Copy rows [r0, r0 + rows) of one (batch, head) of an f32 [B, T, H, D]
-// tensor (row stride st elements) into a shared tile of odd pitch ld, one
-// value a thread.
-template <int D>
-__device__ __forceinline__ void copy_rows(float* dst, int ld,
-                                          const float* src, long long st,
-                                          int r0, int rows, int tid,
-                                          int nthreads) {
-  for (int i = tid; i < rows * D; i += nthreads)
-    dst[(i / D) * ld + i % D] = src[(r0 + i / D) * st + i % D];
+// ------------------------------------------------ the CUDA-core kernels
+// The f32 kernels at every head dim, and the bf16 ones at d > 256, work on
+// f32 tiles of 32 rows in shared memory, 128 columns at a time: a block
+// owns one 128-column panel of its output and sums its scores over the
+// 128-column chunks of d.
+constexpr int kSimtRows = 32;
+constexpr int kSimtThreads = 128;
+constexpr int kPanel = 128;
+constexpr int kPanelLd = kPanel + 1;  // odd pitch: no bank conflicts down a column
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+// Columns [c0, c0 + 128) of rows [r0, r0 + 32) of one (batch, head) of a
+// [B, T, H, D] tensor (row stride st elements) into an f32 tile of pitch
+// kPanelLd, one value a thread; rows at or past T come in as zeros.
+template <typename E>
+__device__ __forceinline__ void load_panel(float* dst, const E* src,
+                                           long long st, int r0, int c0,
+                                           int T, int tid) {
+  for (int i = tid; i < kSimtRows * kPanel; i += kSimtThreads) {
+    const int r = i / kPanel, col = i % kPanel;
+    dst[r * kPanelLd + col] =
+        r0 + r < T ? to_f32(src[(long long)(r0 + r) * st + c0 + col]) : 0.f;
+  }
 }
 
 }  // namespace

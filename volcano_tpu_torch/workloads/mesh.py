@@ -15,8 +15,10 @@ several GPUs runs several consecutive ranks, which share its slice id.
 The default process group must exist before a mesh is built
 (`bootstrap.initialize`): `init_device_mesh` would otherwise start an
 `env://` group of its own.  The training step shards params over fsdp
-and tp and the batch over dcn, dp and fsdp (`model.param_shardings`,
-`train.py`); sp is ROADMAP A.3.
+and tp, the batch over dcn, dp and fsdp, and the sequence over sp
+(`model.param_shardings`, `train.batch_sharding`); sp's groups lie
+inside a slice on a hybrid mesh, so the ring's hops and Ulysses'
+all-to-alls never cross dcn.
 """
 
 from __future__ import annotations
@@ -94,7 +96,8 @@ def _device_type(device_type: Optional[str]) -> str:
 def make_mesh(axis_sizes: Optional[Dict[str, int]] = None,
               device_type: Optional[str] = None) -> DeviceMesh:
     """A (dp, fsdp, tp, sp) mesh over every rank of the default group,
-    in rank order.  `device_type`: `cuda` (the default) or `cpu`."""
+    in rank order (sp innermost: an sp group is consecutive ranks).
+    `device_type`: `cuda` (the default) or `cpu`."""
     n = _world_size()
     if axis_sizes is None:
         axis_sizes = choose_axis_sizes(n)
@@ -139,7 +142,7 @@ def make_hybrid_mesh(axis_sizes: Dict[str, int],
                      slice_id: Optional[int] = None) -> DeviceMesh:
     """Two-level mesh: axis_sizes['dcn'] slices, each holding a full
     (dp, fsdp, tp, sp) sub-mesh of the ranks of one slice, with `dcn`
-    outermost.  Every rank passes its slice id (`TPU_SLICE_ID`, None
+    outermost, so every sp group lies inside one slice.  Every rank passes its slice id (`TPU_SLICE_ID`, None
     when unknown); they are gathered to group the ranks
     (`group_by_slice`)."""
     n = _world_size()

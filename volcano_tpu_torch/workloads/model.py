@@ -28,15 +28,23 @@ residual stream stays full width and replicated over tp by construction
 (the reference anchors it with `_constrain_residual`, a sharding
 constraint that local tensors do not need).
 
+Under sp each rank holds its block of the sequence (tokens
+[b_local, t / sp], positions offset by its sp rank) and attention
+follows the reference's branch order (`_attention`): Ulysses, else the
+ring, else flash on one sequence shard (sp = 1), else the eager path on
+the keys all-gathered over sp.  The loss rolls its targets over the
+global sequence (`next_token_loss` with the sp group).  Ring and
+Ulysses flags do nothing without sp > 1, as in the reference with
+mesh=None.
+
 Not yet ported: mixture-of-experts blocks (`n_experts > 0` raises
-NotImplementedError) and sequence parallelism (a mesh with sp > 1
-raises; ring and Ulysses flags do nothing without one, as in the
-reference with mesh=None).
+NotImplementedError).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -46,7 +54,9 @@ from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 from torch.utils.checkpoint import checkpoint
 
 from volcano_tpu_torch.workloads.ops.flash_attention import flash_attention
-from volcano_tpu_torch.workloads.ring_attention import local_causal_attention
+from volcano_tpu_torch.workloads.ring_attention import (
+    local_causal_attention, ring_attention, ring_shift)
+from volcano_tpu_torch.workloads.ulysses import ulysses_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,20 +234,21 @@ def distribute(tree: Dict[str, Any], mesh) -> Dict[str, Any]:
 
 
 class _Axes:
-    """The fsdp and tp process groups the forward's collectives run
-    over; None for an axis of size 1 (and for both without a mesh), where
-    the collectives are skipped."""
+    """The fsdp, tp and sp process groups the forward's collectives run
+    over; None for an axis of size 1 (and for all without a mesh), where
+    the collectives are skipped.  `sp_rank` is this rank's block of the
+    sequence."""
 
     def __init__(self, mesh=None):
         sizes = dict(zip(mesh.mesh_dim_names, mesh.shape)) if mesh else {}
-        if sizes.get("sp", 1) > 1:
-            raise NotImplementedError(
-                f"mesh {sizes}: sequence parallelism (sp > 1) is not "
-                "ported yet; it is ROADMAP A.3")
-        self.fsdp = mesh.get_group("fsdp") if sizes.get("fsdp", 1) > 1 \
-            else None
-        self.tp = mesh.get_group("tp") if sizes.get("tp", 1) > 1 else None
+
+        def group(axis):
+            return mesh.get_group(axis) if sizes.get(axis, 1) > 1 else None
+
+        self.fsdp, self.tp, self.sp = group("fsdp"), group("tp"), group("sp")
         self.tp_size = sizes.get("tp", 1)
+        self.sp_size = sizes.get("sp", 1)
+        self.sp_rank = mesh.get_local_rank("sp") if self.sp else 0
 
 
 class _Gather(torch.autograd.Function):
@@ -265,7 +276,11 @@ class _Gather(torch.autograd.Function):
             return (chunks[dist.get_rank(ctx.group)].contiguous(), None,
                     None, None)
         out = grad.new_empty(chunks[0].shape)
-        dist.reduce_scatter_tensor(out, torch.cat(chunks), group=ctx.group)
+        # contiguous: cat keeps a channels-last-like layout of its inputs
+        # (an attention gradient has one), which the collective would
+        # read as if it were row-major
+        dist.reduce_scatter_tensor(out, torch.cat(chunks).contiguous(),
+                                   group=ctx.group)
         return out, None, None, None
 
 
@@ -351,8 +366,29 @@ def _attention(x, blk, cfg: ModelConfig, positions, ax: _Axes):
     v = (x @ _use(blk["wv"], "wv", ax).to(x.dtype)).reshape(shape)
     q = _rotary(q, positions)
     k = _rotary(k, positions)
-    if cfg.use_flash_attention:
+    sp, tp = ax.sp_size, ax.tp_size
+    # the reference's branch order (volcano_tpu/workloads/model.py:186)
+    if cfg.use_ulysses_attention and sp > 1 and (cfg.n_heads // tp) % sp == 0:
+        o = ulysses_attention(q, k, v, ax.sp,
+                              use_flash=cfg.use_flash_attention)
+    elif (cfg.use_ring_attention or cfg.use_ulysses_attention) and sp > 1:
+        if cfg.use_ulysses_attention and not cfg.use_ring_attention:
+            warnings.warn(
+                f"use_ulysses_attention needs (n_heads/tp) % sp == 0 "
+                f"(heads={cfg.n_heads}, tp={tp}, sp={sp}); falling "
+                f"back to ring attention", stacklevel=2)
+        o = ring_attention(q, k, v, ax.sp)
+    elif cfg.use_flash_attention and sp == 1:
         o = flash_attention(q, k, v)
+    elif sp > 1:
+        # the reference's eager attention on the GSPMD-gathered sequence:
+        # K and V gathered over sp (each rank's dK, dV partial, so the
+        # gradient comes back reduce-scattered), this rank's rows against
+        # the keys up to its last row
+        end = (ax.sp_rank + 1) * t
+        o = local_causal_attention(
+            q, _Gather.apply(k, 1, ax.sp, True)[:, :end],
+            _Gather.apply(v, 1, ax.sp, True)[:, :end], q_start=ax.sp_rank * t)
     else:
         o = local_causal_attention(q, k, v)
     return _reduce_from_tp(
@@ -379,15 +415,16 @@ def _block(x, blk, cfg: ModelConfig, positions, ax: _Axes):
 def forward_with_aux(params, tokens, cfg: ModelConfig, mesh=None):
     """tokens [b, t] -> (logits [b, t, vocab], moe aux loss scalar).
     With a mesh, params are this rank's local shards (plain tensors laid
-    out by `param_shardings`) and tokens its rows; a mesh with sp > 1
-    raises NotImplementedError."""
+    out by `param_shardings`) and tokens its rows and, under sp, its
+    block of the sequence."""
     _dense_only(cfg)
     ax = _Axes(mesh)
     b, t = tokens.shape
     # the table gathered whole for the lookup, as the reference
     # replicates it
     x = _use(params["embed"], "embed", ax, whole=True)[tokens].to(cfg.dtype)
-    positions = torch.arange(t, device=tokens.device)[None, :].expand(b, t)
+    positions = (ax.sp_rank * t + torch.arange(t, device=tokens.device))[
+        None, :].expand(b, t)
     aux_total = torch.zeros((), device=x.device)
     for blk in params["blocks"]:
         if cfg.remat and torch.is_grad_enabled():
@@ -411,27 +448,46 @@ def forward(params, tokens, cfg: ModelConfig, mesh=None) -> torch.Tensor:
     return forward_with_aux(params, tokens, cfg, mesh)[0]
 
 
-def next_token_loss(logits, tokens) -> torch.Tensor:
+def next_token_loss(logits, tokens, sp=None) -> torch.Tensor:
     """Shared next-token CE: logits [b, t, V], tokens [b, t] -> scalar.
     The last position predicts the rolled-around token and is masked,
     so the mean is over b * (t - 1) positions.  logsumexp minus the
     picked logit, upcast to f32 inside the reduction only: the logits
-    stay in the model dtype."""
-    targets = torch.roll(tokens, -1, dims=1).long()
+    stay in the model dtype.
+
+    With `sp`, the sp process group, logits and tokens are this rank's
+    block of the sequence: the targets roll over the global sequence
+    (the last local position's target is the next rank's first token,
+    and only the global last position is masked), and the local sum is
+    divided by the global count b * (sp t - 1), so the sum over sp is
+    the rows' mean."""
+    if sp is None:
+        targets = torch.roll(tokens, -1, dims=1)
+        n_sp, last = 1, True
+    else:
+        n_sp, r = dist.get_world_size(sp), dist.get_rank(sp)
+        nxt = ring_shift(tokens[:, :1], sp, -1)      # rank r + 1's first
+        targets = torch.cat([tokens[:, 1:], nxt], dim=1)
+        last = r == n_sp - 1
     lse = torch.logsumexp(logits.float(), dim=-1)                # [b, t]
-    picked = torch.gather(logits, -1, targets[..., None])[..., 0].float()
+    picked = torch.gather(logits, -1, targets.long()[..., None])[..., 0] \
+        .float()
     nll = lse - picked
     mask = torch.ones_like(nll)
-    mask[:, -1] = 0.0
-    return (nll * mask).sum() / mask.sum()
+    if last:
+        mask[:, -1] = 0.0
+    b, t = tokens.shape
+    return (nll * mask).sum() / (b * (n_sp * t - 1))
 
 
 def loss_fn(params, batch, cfg: ModelConfig, mesh=None) -> torch.Tensor:
     """Next-token cross entropy (+ MoE load-balancing aux, 0 for the
-    dense models ported so far); batch: {"tokens": [b, t]}."""
+    dense models ported so far); batch: {"tokens": [b, t]}.  Under sp
+    this is the rank's share of its rows' loss (`next_token_loss`)."""
     tokens = batch["tokens"]
     logits, moe_aux = forward_with_aux(params, tokens, cfg, mesh)
-    return next_token_loss(logits, tokens) + cfg.moe_aux_weight * moe_aux
+    return next_token_loss(logits, tokens, _Axes(mesh).sp) + \
+        cfg.moe_aux_weight * moe_aux
 
 
 class DecoderLM(nn.Module):

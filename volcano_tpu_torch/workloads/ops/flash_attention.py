@@ -10,16 +10,21 @@ the reference's custom VJP.  Its forward is `flash_fwd` and its backward
 they run their plain PyTorch versions, `flash_fwd_plain` and
 `flash_bwd_plain` (`flash_bwd_dq_plain` is the dQ kernel's own, with
 the Delta it writes).  There is no fallback from a kernel: a CUDA tensor
-the kernel does not take, a failed build or a failed launch raises.
-Among the shapes `supported()` admits, the kernels take those that
-`kernel_supported()` names (d = 128 or 256, t a multiple of 128); the
-others (d = 384, 512, ..., or t an odd multiple of 64) raise on the card
-before any launch, naming the shape and ROADMAP B.4.
+the kernel does not take (a dtype, a stride, a device), a failed build
+or a failed launch raises.  The kernels take every shape `supported()`
+admits at any block (`kernel_supported`): any t, with a partial last
+tile where their own tiles do not divide it, and any head dim that is a
+multiple of 128 (d = 128 and 256 on the wgmma kernels, the others on
+CUDA-core kernels).
 
 The block sizes (and the FLASH_BLOCK / FLASH_BLOCK_BWD overrides) decide
 the dispatch exactly as in the reference; the CUDA kernels tile by their
-own 32- to 128-row tiles, which divide every t that `supported()` admits
-at the default blocks.
+own 32- to 128-row tiles.
+
+lse and Delta are [b, h, t] f32 with a row stride that is a multiple of
+4 (the dK/dV kernel loads them by TMA, which needs 16-byte rows): for
+t % 4 != 0 the kernels write them into a padded buffer and the wrappers
+return a [b, h, t] view of it.
 """
 
 from __future__ import annotations
@@ -32,11 +37,8 @@ import torch
 
 NEG_INF = -1e30
 
-# what the CUDA kernels take: head dims (a multiple of 128, at most
-# 256) and the largest q/k tile they divide t by (the forward's 128 q
-# rows a block, dK/dV's 128 k rows at d = 128)
-KERNEL_HEAD_DIMS = (128, 256)
-KERNEL_SEQ_MULTIPLE = 128
+# the head dims the CUDA kernels take are the multiples of this
+KERNEL_HEAD_DIM_MULTIPLE = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -56,8 +58,21 @@ def supported(t: int, d: int, block_q: int = 128,
 
 
 def kernel_supported(t: int, d: int) -> bool:
-    """Whether the CUDA kernels take sequence length t and head dim d."""
-    return d in KERNEL_HEAD_DIMS and t % KERNEL_SEQ_MULTIPLE == 0
+    """Whether the CUDA kernels take sequence length t and head dim d:
+    every non-empty shape that `supported()` admits at some block."""
+    return t > 0 and d > 0 and d % KERNEL_HEAD_DIM_MULTIPLE == 0
+
+
+def rows_stride(t: int) -> int:
+    """The row stride of the kernels' lse and Delta [b, h, t]: t rounded
+    up to a multiple of 4 floats (16 bytes, for TMA)."""
+    return (t + 3) // 4 * 4
+
+
+def _rows(b: int, h: int, t: int, device):
+    """An f32 [b, h, t] view with row stride `rows_stride(t)`."""
+    return torch.empty((b, h, rows_stride(t)), dtype=torch.float32,
+                       device=device)[..., :t]
 
 
 def _env_block(name: str, t: int, fallback: int) -> int:
@@ -172,10 +187,9 @@ def _kernel_lib():
     lib = _build.load_library()
     if not getattr(lib, "_vtp_bound", False):
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.vtp_flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i] + \
-            [i64] * 9 + [p]
-        lib.vtp_flash_bwd_dq.argtypes = [p] * 8 + [i] * 6 + [p, p]
-        lib.vtp_flash_bwd_dkv.argtypes = [p] * 8 + [i] * 6 + [p, p]
+        lib.vtp_flash_fwd.argtypes = [p] * 5 + [i] * 7 + [i64] * 9 + [p]
+        lib.vtp_flash_bwd_dq.argtypes = [p] * 8 + [i] * 7 + [p, p]
+        lib.vtp_flash_bwd_dkv.argtypes = [p] * 8 + [i] * 7 + [p, p]
         for fn in (lib.vtp_flash_fwd, lib.vtp_flash_bwd_dq,
                    lib.vtp_flash_bwd_dkv):
             fn.restype = i
@@ -215,24 +229,33 @@ def _check_kernel_inputs(kernel: str, **xs) -> None:
     _, t, _, d = first.shape
     if not kernel_supported(t, d):
         raise ValueError(
-            f"{kernel} kernel: t={t}, head dim {d}; the kernels take head "
-            f"dims {KERNEL_HEAD_DIMS} and t a multiple of "
-            f"{KERNEL_SEQ_MULTIPLE} (ROADMAP B.4)")
+            f"{kernel} kernel: t={t}, head dim {d}; the kernels take t >= 1 "
+            f"and head dims that are positive multiples of "
+            f"{KERNEL_HEAD_DIM_MULTIPLE}")
 
 
-def _check_rows(kernel: str, ref, **xs) -> None:
-    """lse and Delta: f32 [b, h, t] contiguous with a 16-byte aligned
-    start (the kernels load them by TMA), on ref's device."""
+def _check_rows(kernel: str, ref, **xs) -> int:
+    """lse and Delta: f32 [b, h, t] on ref's device, unit stride over t,
+    one row stride ld (a multiple of 4, at least t, rows packed: the
+    kernels load them by TMA) and a 16-byte aligned start; returns ld."""
     b, t, h, _ = ref.shape
+    lds = set()
     for name, x in xs.items():
+        ld = x.stride(1) if x.dim() == 3 else 0
         if x.dtype != torch.float32 or tuple(x.shape) != (b, h, t) or \
-                not x.is_contiguous() or x.device != ref.device or \
-                x.data_ptr() % 16:
+                x.device != ref.device or x.stride() != (h * ld, ld, 1) or \
+                ld % 4 or ld < t or x.data_ptr() % 16:
             raise ValueError(
-                f"{kernel} kernel: {name} must be a contiguous float32 "
-                f"[{b}, {h}, {t}] tensor with a 16-byte aligned start on "
-                f"{ref.device}; got {x.dtype} {tuple(x.shape)} on "
-                f"{x.device}")
+                f"{kernel} kernel: {name} must be a float32 [{b}, {h}, {t}] "
+                f"tensor on {ref.device} with strides ({h} ld, ld, 1) for "
+                f"an ld >= {t} that is a multiple of 4, and a 16-byte "
+                f"aligned start; got {x.dtype} {tuple(x.shape)} strides "
+                f"{x.stride()} on {x.device}")
+        lds.add(ld)
+    if len(lds) > 1:
+        raise ValueError(f"{kernel} kernel: {', '.join(xs)} must share one "
+                         f"row stride; got {sorted(lds)}")
+    return lds.pop()
 
 
 def _raise_on(lib, rc: int, kernel: str) -> None:
@@ -254,12 +277,13 @@ def _launch(q, k, v, causal: bool):
     b, t, h, d = q.shape
     lib = _kernel_lib()
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    lse = _rows(b, h, t, q.device)
     with torch.cuda.device(q.device):
         rc = lib.vtp_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, t, h, d, _DTYPE_CODES[q.dtype], int(causal),
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], _stream(q))
+            lse.data_ptr(), b, t, h, d, rows_stride(t), _DTYPE_CODES[q.dtype],
+            int(causal), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            _stream(q))
     _raise_on(lib, rc, "flash_fwd")
     flash_fwd.launches += 1
     return out, lse
@@ -267,7 +291,8 @@ def _launch(q, k, v, causal: bool):
 
 def flash_fwd(q, k, v, causal: bool = True):
     """q/k/v [b, t, h, d] -> (out [b, t, h, d], lse [b, h, t] f32): the
-    CUDA kernel on a CUDA tensor, `flash_fwd_plain` on a CPU tensor.
+    CUDA kernel on a CUDA tensor (lse a view with row stride
+    `rows_stride(t)`), `flash_fwd_plain` on a CPU tensor.
     `flash_fwd.launches` counts kernel launches."""
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal)
@@ -280,27 +305,30 @@ flash_fwd.launches = 0
 def _bwd_args(kernel: str, tensors: dict, rows: dict, causal: bool):
     """The arguments both backward kernels share, after their checks:
     the pointers of the [b, t, h, d] `tensors` (q first) and then of the
-    f32 [b, h, t] `rows`, in order; the dims; the tensors' strides."""
+    f32 [b, h, t] `rows`, in order; the dims and the rows' stride; the
+    tensors' strides."""
     _check_kernel_inputs(kernel, **tensors)
     q = tensors["q"]
-    _check_rows(kernel, q, **rows)
+    ld = _check_rows(kernel, q, **rows)
     b, t, h, d = q.shape
     strides = (ctypes.c_longlong * (3 * len(tensors)))(
         *(s for x in tensors.values() for s in x.stride()[:3]))
     return ([x.data_ptr() for x in (*tensors.values(), *rows.values())],
-            (b, t, h, d, _DTYPE_CODES[q.dtype], int(causal)), strides)
+            (b, t, h, d, ld, _DTYPE_CODES[q.dtype], int(causal)), strides)
 
 
 def _launch_dq(q, k, v, out, do, lse, causal: bool):
     """Launch the dQ kernel on PyTorch's current stream -> (dq, delta):
-    dq [b, t, h, d] and Delta = rowsum(dO * O) [b, h, t] f32, which the
-    kernel computes for the dK/dV kernel; raises as `_launch` does."""
+    dq [b, t, h, d] and Delta = rowsum(dO * O) [b, h, t] f32 (with lse's
+    row stride), which the kernel computes for the dK/dV kernel; raises
+    as `_launch` does."""
     ins, dims, strides = _bwd_args(
         "flash_bwd_dq", dict(q=q, k=k, v=v, do=do, out=out),
         dict(lse=lse), causal)
     b, t, h, _ = q.shape
     lib = _kernel_lib()
-    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    delta = torch.empty((b, h, lse.stride(1)), dtype=torch.float32,
+                        device=q.device)[..., :t]
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         rc = lib.vtp_flash_bwd_dq(*ins, delta.data_ptr(), dq.data_ptr(),

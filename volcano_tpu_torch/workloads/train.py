@@ -13,20 +13,23 @@ Params and optimizer state are dicts with the model's param structure
 With a mesh (`mesh.make_mesh` / `make_hybrid_mesh`, one process per
 GPU) params and AdamW's mu and nu are DTensors laid out as the
 reference lays them out (`model.param_shardings`: sharded over fsdp and
-tp, replicated over dp and dcn; the count stays an int), and each rank
-holds its rows of the global batch (`batch_sharding`: over the data
-axes dcn x dp x fsdp).  The step runs the forward on the local shards
-(`model.forward_with_aux` gathers each weight over fsdp at its use) and
-reduces the gradients to the global batch's mean: a leaf sharded over
-fsdp comes back from the backward reduce-scattered (summed) over fsdp
-and is then summed over (dcn, dp); every other leaf is summed over the
-flattened data group; both are divided by the data group's size.  The
-clip's global norm sums each leaf's local squares over the axes it is
-sharded on (`grad_global_norm`), and AdamW runs on the local shards.
-The per-rank loss is a mean over its b * (t - 1) positions, so the mean
-over the data group equals the reference's global mean only with equal
-rows per rank, which `batch_sharding` enforces.  A mesh with sp > 1
-raises NotImplementedError (ROADMAP A.3).
+tp, replicated over dp, dcn and sp; the count stays an int), and each
+rank holds its rows of the global batch over the data axes dcn x dp x
+fsdp and its block of the sequence over sp (`batch_sharding`, the
+reference's `P(data_axes, "sp")`).  The step runs the forward on the
+local shards (`model.forward_with_aux` gathers each weight over fsdp at
+its use) and reduces the gradients to the global batch's mean: under
+sp each rank's gradients are its partials of its rows' loss, summed
+over sp first; then a leaf sharded over fsdp comes back from the
+backward reduce-scattered (summed) over fsdp and is summed over
+(dcn, dp), every other leaf is summed over the flattened data group,
+and both are divided by the data group's size.  The clip's global norm
+sums each leaf's local squares over the axes it is sharded on
+(`grad_global_norm`; sp holds whole copies, so it counts them once), and
+AdamW runs on the local shards.  The loss is the rows' mean over their
+b * (t - 1) positions (under sp the sum of each rank's share), so the
+mean over the data group equals the reference's global mean only with
+equal rows per rank, which `batch_sharding` enforces.
 """
 
 from __future__ import annotations
@@ -195,12 +198,10 @@ def _axis_sizes(mesh) -> Dict[str, int]:
     return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
-def _check_mesh(mesh) -> None:
-    sizes = _axis_sizes(mesh)
-    if sizes.get("sp", 1) > 1:
-        raise NotImplementedError(
-            f"mesh {sizes}: sequence parallelism (sp > 1) is not ported "
-            "yet; it is ROADMAP A.3")
+def _sp_group(mesh: DeviceMesh):
+    """The sp process group, None when sp is 1."""
+    return mesh.get_group("sp") if _axis_sizes(mesh).get("sp", 1) > 1 \
+        else None
 
 
 def data_axes(mesh) -> tuple:
@@ -240,35 +241,44 @@ def mesh_device(mesh: DeviceMesh) -> torch.device:
     return torch.device(mesh.device_type)
 
 
+def _block(size: int, index: int, count: int, what: str) -> slice:
+    if size % count:
+        raise ValueError(f"{what} {size} does not divide over {count} ranks")
+    per = size // count
+    return slice(index * per, (index + 1) * per)
+
+
 @dataclasses.dataclass(frozen=True)
 class BatchShard:
-    """The rows of the global batch one rank holds: block `index` of
+    """The part of the global batch one rank holds, as the reference's
+    `P(data_axes, "sp")` lays it out: the rows of block `index` of
     `count` equal blocks, where `index` is the rank's coordinate along
-    the data axes in mesh order (dcn major), as the reference's
-    `P(data_axes, "sp")` lays the batch out."""
+    the data axes in mesh order (dcn major), and the sequence columns of
+    block `sp_index` of `sp_count`."""
     index: int
     count: int
+    sp_index: int = 0
+    sp_count: int = 1
 
     def rows(self, global_batch: int) -> slice:
-        if global_batch % self.count:
-            raise ValueError(
-                f"global batch {global_batch} does not divide over "
-                f"{self.count} data-parallel ranks")
-        per = global_batch // self.count
-        return slice(self.index * per, (self.index + 1) * per)
+        return _block(global_batch, self.index, self.count,
+                      "global batch")
+
+    def cols(self, seq_len: int) -> slice:
+        return _block(seq_len, self.sp_index, self.sp_count,
+                      "sequence length")
 
 
 def batch_sharding(mesh: DeviceMesh) -> BatchShard:
     """Tokens [b, t]: batch over data_axes, the same rows on every tp
-    rank; the sequence would shard over sp, which must be 1 here."""
-    _check_mesh(mesh)
+    rank, the sequence over sp."""
     sizes = _axis_sizes(mesh)
     coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
     index, count = 0, 1
     for axis in data_axes(mesh):
         index = index * sizes[axis] + coord[axis]
         count *= sizes[axis]
-    return BatchShard(index, count)
+    return BatchShard(index, count, coord["sp"], sizes["sp"])
 
 
 def init_sharded(generator: torch.Generator, cfg: ModelConfig,
@@ -278,7 +288,6 @@ def init_sharded(generator: torch.Generator, cfg: ModelConfig,
     the same params from the same seed, keeps its shard (DTensors by
     `model.param_shardings`, which `placements` gives) and frees the
     rest; mu and nu take the params' placements, the count is an int."""
-    _check_mesh(mesh)
     params = model_lib.distribute(
         model_lib.init_params(cfg, generator, mesh_device(mesh)), mesh)
     return params, optimizer.init(params), \
@@ -331,10 +340,15 @@ def _sharded_over(placements, mesh: DeviceMesh, axes: tuple) -> int:
 def _reduce_grads(grads: List[torch.Tensor], placements: List[tuple],
                   mesh: DeviceMesh) -> None:
     """Turn each rank's local gradients, in place, into its shards of
-    the global batch's mean gradient.  A leaf sharded over fsdp arrives
-    summed over fsdp by the backward's reduce-scatter and is summed over
-    the rest of the data axes; every other leaf is summed over all of
-    them; both are divided by the data group's size."""
+    the global batch's mean gradient.  Under sp every leaf is first
+    summed over sp (each rank's are its partials of its rows' loss).  A
+    leaf sharded over fsdp arrives summed over fsdp by the backward's
+    reduce-scatter and is summed over the rest of the data axes; every
+    other leaf is summed over all of them; both are divided by the data
+    group's size."""
+    sp = _sp_group(mesh)
+    if sp is not None:
+        _sum_and_divide(grads, sp, 1)
     data = data_mesh(mesh)
     n = data.size()
     by_fsdp = [_sharded_over(p, mesh, ("fsdp",)) > 1 for p in placements]
@@ -379,8 +393,6 @@ def value_and_grad(params: Dict[str, Any], batch: Dict[str, Any],
     rank's rows, the forward runs on the local shards, and the loss and
     grads returned are the global batch's mean (grads as DTensors with
     the params' placements)."""
-    if mesh is not None:
-        _check_mesh(mesh)
     # the leaves differentiated: detached views of the params' storage
     # (of their local shards, with a mesh)
     shards = tree_map(lambda x: local(x).detach().requires_grad_(True),
@@ -394,6 +406,9 @@ def value_and_grad(params: Dict[str, Any], batch: Dict[str, Any],
         return loss, tree_map(lambda _: next(g_leaves), params)
     placements = [p.placements for p in leaves(params)]
     _reduce_grads(g_list, placements, mesh)
+    sp = _sp_group(mesh)
+    if sp is not None:
+        dist.all_reduce(loss, group=sp)      # the rows' loss
     all_reduce_mean([loss], mesh)
     g_leaves = iter(zip(g_list, placements))
 
@@ -424,7 +439,6 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW,
     PyTorch runs eagerly, so there is nothing to compile; with a mesh,
     the step's groups are formed here, on every rank at once."""
     if mesh is not None:
-        _check_mesh(mesh)
         data_mesh(mesh)
         _replica_mesh(mesh)
         _shard_mesh(mesh)
@@ -442,11 +456,12 @@ def synthetic_batch(generator: torch.Generator, cfg: ModelConfig,
     generator's device.  With a mesh, batch_size is the global batch:
     every rank draws all of it, which needs the same generator state on
     every rank (a CPU generator agrees on any device), and keeps its own
-    rows (`batch_sharding`), moved to its device."""
+    rows and sequence block (`batch_sharding`), moved to its device."""
     tokens = torch.randint(0, cfg.vocab_size, (batch_size, seq_len),
                            generator=generator, device=generator.device,
                            dtype=torch.int64)
     if mesh is not None:
-        tokens = tokens[batch_sharding(mesh).rows(batch_size)] \
-            .to(mesh_device(mesh))
+        shard = batch_sharding(mesh)
+        tokens = tokens[shard.rows(batch_size), shard.cols(seq_len)] \
+            .contiguous().to(mesh_device(mesh))
     return {"tokens": tokens}

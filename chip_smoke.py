@@ -36,7 +36,16 @@ rates, and the mesh step's cost over the plain step; (11) `phase_sp`:
 with two or more GPUs, the flagship trained with its sequence over sp 2
 on nccl, Ulysses (the flash kernels inside) against phase_train's
 one-card flash step and the ring against a one-card eager step; on one
-GPU it prints that it did not run, and why.
+GPU it prints that it did not run, and why; (12) `phase_moe`: the MoE
+flagship (`flagship_moe_config`, 4 experts in the odd layers, top-2,
+capacity 1.5, 1.272 G params) trained for six steps at batch 8 x 2048
+with every kernel's launches counted, its step time, tokens/s and MFU
+(experts counted by the slots they process), memory, a no-grad
+forward, two more steps with dense dispatch, and one f32 step at 2
+layers on the card against the CPU (gradients and routes); (13)
+`phase_pp`: phase_train's model, weights and batch through the GPipe
+step at pp 1 on a one-rank nccl group, 4 microbatches, held against
+phase_train's losses and norms.
 
 The kernel phases (3)-(5) also hold and time the kernels at the shapes
 beyond d in {128, 256} and t % 128 == 0 (d = 384 and 512 on the
@@ -100,6 +109,23 @@ REMAT_SHARE = 1e-5
 # bf16 (tests/test_torch_gpu.py's RTOL_SP_BF16, where the readings are)
 RTOL_SP_BF16 = dict(losses=1.5e-4, norms=7e-4)
 SP_STEPS = 4          # lr(0) = 0: steps 3 and 4 follow real updates
+# the MoE flagship: steps with capacity dispatch, then with dense dispatch
+MOE_DENSE_STEPS = 2
+# the MoE step at 2 layers in f32 on the card against the CPU: each
+# gradient leaf within this share of its largest value (sum order and the
+# f32 CUDA-core attention against the plain version; the routes must be
+# identical, so no token changes expert)
+MOE_PARITY_SHARE = 1e-3
+MOE_PARITY_BATCH = (2, 256)
+# the pipelined flagship at pp 1 against phase_train's step, bf16: the
+# same ops on microbatches of 2 rows, so cuBLAS tiles the products
+# otherwise and each weight's gradient is rounded to bf16 a microbatch
+# before the f32 sum.  Stated before the first run from the nearest
+# readings, the sp paths' (tests/test_torch_gpu.py's RTOL_SP_BF16: the
+# products on a share of the rows, the gradients summed in pieces), at
+# the same bounds
+RTOL_PP_BF16 = dict(losses=1.5e-4, norms=7e-4)
+PP_MICROBATCHES = 4
 TRAIN_STEPS = 6
 TRAIN_BATCH = 8
 RESUME_STEPS = 5      # the mesh run; checkpointed after step SAVE_STEP
@@ -1203,11 +1229,278 @@ def phase_sp(model, train, tr):
     return res
 
 
+def moe_model_flops(cfg, params, b, t):
+    """Model FLOP of one MoE training step, phase_train's accounting
+    (`model_flops`) with the experts counted by the slots they process:
+    each MoE layer runs its SwiGLU products (3 d x ff MACs a row, times 6
+    for the forward and backward) on b x E x C rows (C the capacity; t
+    under dense dispatch), not on tokens x E by their parameters, which
+    at capacity 1.5, top-2 and 4 experts would count 4/3 of the work."""
+    expert = {"moe_gate", "moe_up", "moe_down"}
+    total = sum(x.numel() for _, x in leaf_items(params))
+    experts = sum(x.numel() for name, x in leaf_items(params)
+                  if name.split(".")[-1] in expert)
+    matmul_params = total - experts - cfg.vocab_size * cfg.d_model
+    moe_layers = sum(1 for blk in params["blocks"] if "router" in blk)
+    k = min(cfg.expert_top_k, cfg.n_experts)
+    slots = t if cfg.moe_capacity_factor <= 0 else max(1, math.ceil(
+        cfg.moe_capacity_factor * t * k / cfg.n_experts))
+    expert_flops = moe_layers * 6.0 * 3 * cfg.d_model * cfg.d_ff * b * \
+        cfg.n_experts * slots
+    attn_fwd = cfg.n_layers * 4.0 * b * cfg.n_heads * t * t * \
+        cfg.head_dim / 2
+    return 6.0 * matmul_params * b * t + expert_flops + 3.0 * attn_fwd, total
+
+
+def train_steps(step, params, state, batch, fa, n):
+    """n steps of `step`: (params, state, losses, norms, step ms, launches
+    a step)."""
+    losses, norms, step_ms, per_step = [], [], [], []
+    for _ in range(n):
+        before = launch_counts(fa)
+        t1 = time.monotonic()
+        params, state, metrics = step(params, state, batch)
+        losses.append(metrics["loss"].item())
+        norms.append(metrics["grad_norm"].item())
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t1) * 1e3)
+        after = launch_counts(fa)
+        per_step.append({k: after[k] - before[k] for k in after})
+    return params, state, losses, norms, step_ms, per_step
+
+
+def moe_parity(model, train, moe):
+    """One f32 MoE step's loss and gradients (flagship widths, 2 layers,
+    layer 1 routed, capacity 1.5, batch MOE_PARITY_BATCH) on the card
+    against the CPU from the same weights and tokens: each gradient leaf
+    within MOE_PARITY_SHARE of its largest, and every token routed to the
+    same experts."""
+    full_f32()
+    cfg = model.flagship_moe_config(n_layers=2, dtype=torch.float32)
+    b, t = MOE_PARITY_BATCH
+    params = model.init_params(cfg, torch.Generator().manual_seed(9), "cpu")
+    batch = train.synthetic_batch(torch.Generator().manual_seed(10), cfg, b, t)
+    routes = {}
+    orig = moe.top_k
+
+    def recording(probs, k):
+        vals, idx = orig(probs, k)
+        routes.setdefault(probs.device.type, []).append(idx.cpu())
+        return vals, idx
+
+    moe.top_k = recording
+    try:
+        loss_c, g_cpu = train.value_and_grad(params, batch, cfg)
+        on_card = train.tree_map(lambda x: x.to("cuda"), params)
+        loss_g, g_card = train.value_and_grad(
+            on_card, {"tokens": batch["tokens"].to("cuda")}, cfg)
+    finally:
+        moe.top_k = orig
+    g_card = train.tree_map(lambda x: x.cpu(), g_card)
+    share, leaf = worst_leaf_share(g_card, g_cpu)
+    same = len(routes["cpu"]) == len(routes["cuda"]) == 1 and \
+        torch.equal(routes["cpu"][0], routes["cuda"][0])
+    moved = int((routes["cpu"][0] != routes["cuda"][0]).any(-1).sum())
+    log(f"[moe parity] flagship widths, 2 layers (layer 1 MoE) f32, tokens "
+        f"[{b}, {t}], capacity {cfg.moe_capacity_factor}: loss card "
+        f"{loss_g.item():.6f} cpu {loss_c.item():.6f}; max|dgrad| / "
+        f"max|grad| {share:.3e} at {leaf} (tolerance {MOE_PARITY_SHARE}); "
+        f"routes identical {same} ({moved} tokens differ)")
+    if not same or share > MOE_PARITY_SHARE or \
+            abs(loss_g.item() - loss_c.item()) > ATOL_PARITY:
+        raise AssertionError("the MoE step on the card differs from the CPU")
+    del params, on_card, g_card, g_cpu
+    torch.cuda.empty_cache()
+    return dict(grad_share=share, loss_card=loss_g.item(),
+                loss_cpu=loss_c.item())
+
+
+def phase_moe(model, train, moe, fa, flop_peak):
+    """The MoE flagship (`flagship_moe_config`: d2048-L8, 4 experts in
+    layers 1, 3, 5, 7, top-2, capacity 1.5, bf16, flash, remat off) at
+    batch 8 x 2048: TRAIN_STEPS steps through make_train_step with every
+    kernel's launches counted (n_layers of each a step: the MoE blocks
+    keep their attention), step ms, tokens/s and MFU by
+    `moe_model_flops`, memory after init and at peak; a no-grad
+    forward's ms; MOE_DENSE_STEPS more steps with dense dispatch; and
+    the f32 card-against-CPU check (`moe_parity`)."""
+    t = SLICE_SHAPE[1]
+    cfg = model.flagship_moe_config()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params = model.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(5), "cuda")
+    optimizer = train.make_optimizer()
+    state = optimizer.init(params)
+    torch.cuda.synchronize()
+    init_gb = (torch.cuda.memory_allocated() - base) / 1e9
+    batch = train.synthetic_batch(
+        torch.Generator(device="cuda").manual_seed(6), cfg, TRAIN_BATCH, t)
+    step = train.make_train_step(cfg, optimizer)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(fa)
+    params, state, losses, norms, step_ms, per_step = train_steps(
+        step, params, state, batch, fa, TRAIN_STEPS)
+    launches = launch_counts(fa)
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    steady = sorted(step_ms[1:])
+    med_ms = steady[len(steady) // 2]
+    flops, n_params = moe_model_flops(cfg, params, TRAIN_BATCH, t)
+    tflops = flops / med_ms / 1e9
+    log(f"[moe] flagship MoE d2048-L8 bf16 (4 experts in the odd layers, "
+        f"top-2, capacity 1.5), batch {TRAIN_BATCH} x {t}: losses {losses}; "
+        f"grad norms {norms}; step ms {[round(x, 3) for x in step_ms]}; "
+        f"launches per step {per_step}; memory after init {init_gb:.3f} GB, "
+        f"peak {peak_gb:.3f} GB")
+    log(f"[moe] median steady step {med_ms:.3f} ms, tokens/s "
+        f"{TRAIN_BATCH * t / med_ms * 1e3:.1f}, model {flops:.4e} FLOP a "
+        f"step (experts by slots, {n_params / 1e6:.1f} M params) = "
+        f"{tflops:.1f} TFLOP/s, mfu_bf16_dense {tflops * 1e12 / flop_peak:.4f}")
+    want = {k: cfg.n_layers for k in launches}
+    if any(c != want for c in per_step):
+        raise AssertionError(f"MoE launches per step {per_step}, want {want}")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError("non-finite MoE loss or grad norm")
+
+    with torch.inference_mode():
+        fwd_ms = []
+        for _ in range(4):
+            t1 = time.monotonic()
+            logits = model.forward(params, batch["tokens"], cfg)
+            torch.cuda.synchronize()
+            fwd_ms.append((time.monotonic() - t1) * 1e3)
+        if not torch.isfinite(logits.float()).all():
+            raise AssertionError("non-finite MoE serving logits")
+        del logits
+    forward_ms = sorted(fwd_ms[1:])[1]
+    profile = profile_step(train, cfg, optimizer, params, state, batch)
+
+    dense_cfg = model.flagship_moe_config(moe_capacity_factor=0.0)
+    dense_step = train.make_train_step(dense_cfg, optimizer)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(fa)
+    params, state, d_losses, d_norms, d_ms, d_per_step = train_steps(
+        dense_step, params, state, batch, fa, MOE_DENSE_STEPS)
+    d_peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    d_flops, _ = moe_model_flops(dense_cfg, params, TRAIN_BATCH, t)
+    log(f"[moe] no-grad forward ms {[round(x, 3) for x in fwd_ms]}; dense "
+        f"dispatch, {MOE_DENSE_STEPS} more steps: losses {d_losses}, grad "
+        f"norms {d_norms}, step ms {[round(x, 3) for x in d_ms]} "
+        f"({d_flops / d_ms[-1] / 1e9:.1f} TFLOP/s by slots), launches per "
+        f"step {d_per_step}, peak {d_peak_gb:.3f} GB")
+    if any(c != want for c in d_per_step) or \
+            not all(math.isfinite(x) for x in d_losses + d_norms):
+        raise AssertionError("the dense-dispatch MoE steps are off")
+    del params, state, batch
+    torch.cuda.empty_cache()
+    parity = moe_parity(model, train, moe)
+    return dict(launches=launches, steps=TRAIN_STEPS, step_ms=med_ms,
+                losses=losses, norms=norms,
+                tokens_per_s=TRAIN_BATCH * t / med_ms * 1e3,
+                model_tflops=tflops,
+                mfu_bf16_dense=tflops * 1e12 / flop_peak,
+                params_m=n_params / 1e6, memory_after_init_gb=init_gb,
+                peak_gb=peak_gb, forward_ms=forward_ms,
+                dense_losses=d_losses, dense_norms=d_norms,
+                dense_step_ms=d_ms, dense_peak_gb=d_peak_gb, parity=parity,
+                profile=profile)
+
+
+def profile_pp_step(step, params, state, batch):
+    """One more pipelined step under torch.profiler: device time by
+    kernel group (the optimizer's among the elementwise kernels) and the
+    device's idle share of the step's host wall time."""
+    wall, by_name = profile_kernels(lambda: step(params, state, batch))
+    if not by_name:
+        log("[pp profile] the profiler saw no device kernels: not measured")
+        return None
+    groups = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
+              "matmul": 0.0, "elementwise": 0.0}
+    for name, (ms, _) in by_name.items():
+        groups[kernel_group(name)] += ms
+    busy = sum(groups.values())
+    log(f"[pp profile] one step: host wall {wall:.3f} ms, device busy "
+        f"{busy:.3f} ms, idle share {1 - busy / wall:.4f}; "
+        + ", ".join(f"{k} {v:.3f} ms ({v / busy:.1%})"
+                    for k, v in groups.items()))
+    log_top("pp profile", by_name)
+    return dict(groups, wall_ms=wall, busy_ms=busy)
+
+
+def phase_pp(model, train, pipeline, fa, bootstrap, tr):
+    """phase_train's model, weights and batch through
+    `pipeline.make_pipelined_train_step` on a one-rank nccl group at
+    pp 1 with PP_MICROBATCHES microbatches: TRAIN_STEPS steps, losses and
+    norms against phase_train's within RTOL_PP_BF16, PP_MICROBATCHES x
+    n_layers launches of each kernel a step, step ms against
+    phase_train's, memory after init and at peak."""
+    import torch.distributed as dist
+    t = SLICE_SHAPE[1]
+    cfg = model.flagship_config()
+    bootstrap.initialize({"TPU_WORKER_ID": "0", "NUM_PROCESSES": "1"},
+                         device="cuda")
+    try:
+        mesh = pipeline.make_pp_mesh(1, device_type="cuda")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        params = model.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(5), "cuda")
+        outer, stages = pipeline.distribute_stages(
+            *pipeline.stack_stage_params(params, 1), mesh)
+        del params
+        optimizer = train.make_optimizer()
+        state = optimizer.init(pipeline.joined(outer, stages))
+        torch.cuda.synchronize()
+        init_gb = (torch.cuda.memory_allocated() - base) / 1e9
+        batch = train.synthetic_batch(
+            torch.Generator(device="cuda").manual_seed(6), cfg, TRAIN_BATCH, t)
+        pp_step = pipeline.make_pipelined_train_step(cfg, mesh, optimizer,
+                                                     PP_MICROBATCHES)
+
+        def step(params, state, batch):
+            o, s, state, m = pp_step(params[0], params[1], state, batch)
+            return (o, s), state, m
+
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(fa)
+        _, _, losses, norms, step_ms, per_step = train_steps(
+            step, (outer, stages), state, batch, fa, TRAIN_STEPS)
+        launches = launch_counts(fa)
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        profile = profile_pp_step(step, (outer, stages), state, batch)
+    finally:
+        dist.destroy_process_group()
+    steady = sorted(step_ms[1:])
+    med_ms = steady[len(steady) // 2]
+    gaps = {k: max(abs(a - b) / abs(b) for a, b in zip(got, tr[k]))
+            for k, got in (("losses", losses), ("norms", norms))}
+    log(f"[pp] flagship d2048-L8 bf16 through the pipelined step at pp 1, "
+        f"{PP_MICROBATCHES} microbatches of {TRAIN_BATCH // PP_MICROBATCHES}"
+        f" x {t}: losses {losses}; grad norms {norms}; phase_train's "
+        f"{tr['losses']}, {tr['norms']}; largest relative gap {gaps} "
+        f"(tolerance {RTOL_PP_BF16}); step ms {[round(x, 3) for x in step_ms]}"
+        f" (median {med_ms:.3f} against phase_train's {tr['step_ms']:.3f}); "
+        f"launches per step {per_step}; memory after init {init_gb:.3f} GB, "
+        f"peak {peak_gb:.3f} GB")
+    want = {k: PP_MICROBATCHES * cfg.n_layers for k in launches}
+    if any(c != want for c in per_step):
+        raise AssertionError(f"pp launches per step {per_step}, want {want}")
+    if not all(math.isfinite(x) for x in losses + norms) or \
+            any(gaps[k] > RTOL_PP_BF16[k] for k in gaps):
+        raise AssertionError("the pipelined step differs from phase_train's")
+    torch.cuda.empty_cache()
+    return dict(launches=launches, steps=TRAIN_STEPS, step_ms=med_ms,
+                plain_step_ms=tr["step_ms"], losses=losses, norms=norms,
+                gaps=gaps, memory_after_init_gb=init_gb, peak_gb=peak_gb,
+                profile=profile)
+
+
 def main() -> int:
     # the port first: alone, without the repo, the script fails here
     # before it prints anything
     from volcano_tpu_torch.workloads import (bootstrap, checkpoint, model,
-                                             serve, train, worker)
+                                             moe, pipeline, serve, train,
+                                             worker)
     from volcano_tpu_torch.workloads import mesh as mesh_lib
     from volcano_tpu_torch.workloads.ops import _build
     fa = importlib.import_module(
@@ -1229,6 +1522,8 @@ def main() -> int:
     wk = phase_worker(model, train, checkpoint, worker)
     rs = phase_sharded(model, train, fa, bootstrap, mesh_lib, checkpoint, tr)
     sp = phase_sp(model, train, tr)
+    mo = phase_moe(model, train, moe, fa, flop_peak)
+    pp = phase_pp(model, train, pipeline, fa, bootstrap, tr)
     common = {"shape": list(SLICE_SHAPE), "dtype": "bfloat16",
               "causal": True, "card": smi,
               # every case each kernel was held at against its plain version
@@ -1275,8 +1570,14 @@ def main() -> int:
         f"{tr['mfu_bf16_dense']:.4f}")
     for kern in kernels:
         kern["launches_sharded"] = rs["launches"][kern["name"]]
+        kern["launches_moe"] = mo["launches"][kern["name"]]
+        kern["launches_pp"] = pp["launches"][kern["name"]]
+    log(f"[moe] step ms (median of steady steps) {mo['step_ms']:.3f}, "
+        f"tokens/s {mo['tokens_per_s']:.1f}, mfu_bf16_dense "
+        f"{mo['mfu_bf16_dense']:.4f}; [pp] step ms {pp['step_ms']:.3f}")
     log(json.dumps({"worker": {"card": smi, "phase_worker": wk,
-                               "phase_sharded": rs, "phase_sp": sp}}))
+                               "phase_sharded": rs, "phase_sp": sp,
+                               "phase_moe": mo, "phase_pp": pp}}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

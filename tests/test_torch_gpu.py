@@ -4,8 +4,11 @@ starts a rank a visible GPU, against one process's loss on the whole
 global batch computed on the CPU; the flagship d2048-L8 trained at full
 width with params and AdamW state sharded over fsdp and tp, and with the
 sequence over sp (Ulysses, the ring, the gathered path, and Ulysses at
-t 8192), against the one-card step from the same weights; and the flash
-kernels at the shapes beyond d in {128, 256} and t % 128 == 0.
+t 8192), against the one-card step from the same weights; the MoE
+flagship with its experts over fsdp (expert parallelism) and tp, and the
+flagship pipelined over pp (GPipe, flat and a stage per slice), against
+the one-card step from the same weights; and the flash kernels at the
+shapes beyond d in {128, 256} and t % 128 == 0.
 
 Each test needs the GPUs it names and skips without them.  Imports no
 JAX, so it runs where only PyTorch is installed (4 GPUs for all of it):
@@ -13,6 +16,7 @@ JAX, so it runs where only PyTorch is installed (4 GPUs for all of it):
     python -m pytest tests/test_torch_gpu.py -m gpu -q -s
 """
 
+import glob
 import importlib
 import json
 import os
@@ -21,6 +25,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -52,6 +57,30 @@ RTOL_FLAGSHIP_BF16 = dict(losses=1e-4, norms=5e-4)
 # moved the losses by at most 3.2e-5 and the norms by at most 1.8e-4 of
 # their value (f32: 1.3e-7); each bound is about 4 times its reading
 RTOL_SP_BF16 = dict(losses=1.5e-4, norms=7e-4)
+# the MoE flagship (4 experts, top-2, capacity 1.5) sharded against one
+# card, bf16, stated before the first 4-GPU run: besides the dense
+# paths' rounding, each rank routes its own rows, so a token whose two
+# best experts nearly tie in bf16 may take the other one.  The loss bound
+# is no looser than the reference's 5e-3 on the loss of its own
+# experts-over-slices check (4e-4 of a loss near 10.9 is 4.4e-3); a
+# flipped route moves the gradients more than the loss
+RTOL_MOE_BF16 = dict(losses=4e-4, norms=5e-3)
+# the pipelined flagship against one card, bf16: chip_smoke.py's
+# RTOL_PP_BF16 (microbatches of 2 rows; measured at pp 1 on one H100:
+# 1.9e-5 and 2.9e-4)
+RTOL_PP_BF16 = dict(losses=1.5e-4, norms=7e-4)
+# f32 MoE from the first step in which some token took other experts
+# than on one card (a near tie broken the other way by sum-order noise,
+# which f32 meets too): on 4 H100s one flipped token (of 16384 x 1 MoE
+# layer a step) moved the loss by 3.9e-6 and the norm by 2.8e-5 of
+# their values, so at most MOE_F32_MAX_FLIPS tokens a step may flip and
+# the gaps stay within about 4 times that reading a flip.  A run that
+# computes in a lower precision flips hundreds a step from step 1 (bf16:
+# 226-2847) and fails the count
+RTOL_MOE_F32_FLIP = dict(losses=2e-5, norms=1e-4)
+MOE_F32_MAX_FLIPS = 4
+MOE_FLAGS = {"n_experts": 4, "expert_top_k": 2, "moe_capacity_factor": 1.5}
+PP_MICROBATCHES = 4
 FLAGSHIP_BATCH, FLAGSHIP_SEQ, FLAGSHIP_STEPS = 8, 2048, 5
 LONG_BATCH, LONG_SEQ = 2, 8192
 # the flash kernels' bf16 tolerance, as chip_smoke.py's TOL_BF16
@@ -213,6 +242,17 @@ step = tt.make_train_step(cfg, opt, mesh)
 torch.cuda.reset_peak_memory_stats()
 fa.flash_fwd.launches = 0
 fa.flash_bwd.launches_dq = fa.flash_bwd.launches_dkv = 0
+# with a routes path (argv 8), every MoE layer's chosen experts of the
+# steps, saved a rank with the first of its rows and of its columns
+routes = []
+from volcano_tpu_torch.workloads import moe
+top_k = moe.top_k
+if len(sys.argv) > 8:
+    def recording(probs, k):
+        vals, idx = top_k(probs, k)
+        routes.append(idx.cpu())
+        return vals, idx
+    moe.top_k = recording
 losses, norms, ms = [], [], []
 for _ in range(steps):
     t0 = time.monotonic()
@@ -220,6 +260,15 @@ for _ in range(steps):
     losses.append(m["loss"].item()); norms.append(m["grad_norm"].item())
     torch.cuda.synchronize()
     ms.append((time.monotonic() - t0) * 1e3)
+moe.top_k = top_k
+if len(sys.argv) > 8:
+    import numpy as np
+    shard = tt.batch_sharding(mesh) if mesh else None
+    rows = shard.rows(batch) if mesh else slice(0, batch)
+    cols = shard.cols(seq) if mesh else slice(0, seq)
+    np.savez(f"{sys.argv[8]}.rank{dist.get_rank()}.npz",
+             routes=torch.stack(routes).numpy(), start=rows.start,
+             col=cols.start)
 launches = [fa.flash_fwd.launches, fa.flash_bwd.launches_dq,
             fa.flash_bwd.launches_dkv]
 # one more step under the profiler, for where its time goes: device ms
@@ -251,10 +300,11 @@ dist.destroy_process_group()
 
 
 def _flagship(axes, layers, dtype, flags=None, batch=FLAGSHIP_BATCH,
-              seq=FLAGSHIP_SEQ):
+              seq=FLAGSHIP_SEQ, routes=None):
     """RANK_FLAGSHIP over one rank a GPU of the mesh `axes` (one card
     with no mesh when empty), the flagship config with `flags`: rank 0's
-    JSON result, with a sixth step's device time by kernel group."""
+    JSON result, with a sixth step's device time by kernel group.  With
+    `routes`, a path prefix, each rank saves its MoE routes there."""
     world = 1
     for n in axes.values():
         world *= n
@@ -262,7 +312,7 @@ def _flagship(axes, layers, dtype, flags=None, batch=FLAGSHIP_BATCH,
     outs = _run(
         [[sys.executable, "-c", RANK_FLAGSHIP, json.dumps(axes), str(layers),
           dtype, str(batch), str(seq), str(FLAGSHIP_STEPS),
-          json.dumps(flags or {})]] * world,
+          json.dumps(flags or {})] + ([routes] if routes else [])] * world,
         [_base_env(TPU_WORKER_ID=r, NUM_PROCESSES=world, LOCAL_RANK=r,
                    COORDINATOR_ADDRESS=f"127.0.0.1:{port}")
          for r in range(world)])
@@ -272,17 +322,24 @@ def _flagship(axes, layers, dtype, flags=None, batch=FLAGSHIP_BATCH,
 
 
 @pytest.fixture(scope="module")
-def one_card():
+def one_card(tmp_path_factory):
     """The one-card step's results, by (layers, dtype, flash attention
-    or eager, batch, seq), run once each."""
+    or eager, batch, seq, flags), run once each; with MoE flags its
+    routes are saved under the path prefix `routes` of the result."""
     cache = {}
+    folder = tmp_path_factory.mktemp("one_card")
 
     def get(layers, dtype, flash=True, batch=FLAGSHIP_BATCH,
-            seq=FLAGSHIP_SEQ):
-        key = (layers, dtype, flash, batch, seq)
+            seq=FLAGSHIP_SEQ, flags=None):
+        key = (layers, dtype, flash, batch, seq, json.dumps(flags or {}))
         if key not in cache:
+            routes = str(folder / f"routes{len(cache)}") \
+                if (flags or {}).get("n_experts") else None
             cache[key] = _flagship({}, layers, dtype,
-                                   {"use_flash_attention": flash}, batch, seq)
+                                   dict(flags or {},
+                                        use_flash_attention=flash),
+                                   batch, seq, routes)
+            cache[key]["routes"] = routes
         return cache[key]
 
     return get
@@ -384,6 +441,195 @@ def test_long_context_ulysses_matches_one_card(one_card):
                       "dtype": "bfloat16", "batch": LONG_BATCH,
                       "seq": LONG_SEQ, "sp": got, "one_card": ref}))
     _hold_sp(got, ref, 8, RTOL_SP_BF16, True)
+
+
+# -- MoE with expert parallelism, and GPipe, on 4 GPUs ---------------------
+
+def _moe_params(layers):
+    """The MoE flagship's param count at `layers` (experts in the odd
+    layers)."""
+    cfg = tm.flagship_moe_config(n_layers=layers)
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    attn = 4 * d * d + 2 * d
+    moe = (layers // 2) * (attn + d * e + 3 * e * d * f)
+    dense = (layers - layers // 2) * (attn + 3 * d * f)
+    return 2 * cfg.vocab_size * d + d + moe + dense
+
+
+def _route_flips(sharded, one):
+    """Tokens a step whose chosen experts (any MoE layer) differ between
+    the ranks' routes (path prefix `sharded`) and one card's (`one`);
+    ranks holding the same block of rows and columns (tp) are counted
+    once."""
+    ref = np.load(f"{one}.rank0.npz")["routes"]      # [steps x L, b, t, k]
+    per = ref.shape[0] // FLAGSHIP_STEPS
+    flips, seen = np.zeros(FLAGSHIP_STEPS, dtype=np.int64), set()
+    for path in sorted(glob.glob(f"{sharded}.rank*.npz")):
+        data = np.load(path)
+        start, col, got = int(data["start"]), int(data["col"]), data["routes"]
+        if (start, col) in seen:
+            continue
+        seen.add((start, col))
+        b, t = got.shape[1:3]
+        diff = (got != ref[:, start:start + b, col:col + t]).any(-1)
+        flips += diff.reshape(FLAGSHIP_STEPS, per, -1).sum(axis=(1, 2))
+    return flips.tolist()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layers,dtype,rtol,flip_rtol,max_flips", [
+    (8, "bfloat16", RTOL_MOE_BF16, RTOL_MOE_BF16, None),
+    (2, "float32", RTOL_FLAGSHIP_F32, RTOL_MOE_F32_FLIP, MOE_F32_MAX_FLIPS)],
+    ids=["L8_bf16", "L2_f32"])
+@pytest.mark.parametrize("axes", [
+    {"fsdp": 4}, {"fsdp": 2, "tp": 2}, {"fsdp": 2, "sp": 2}],
+    ids=["fsdp4_ep4", "fsdp2_tp2", "fsdp2_sp2_ulysses"])
+def test_moe_flagship_sharded_matches_one_card(axes, layers, dtype, rtol,
+                                               flip_rtol, max_flips,
+                                               one_card, tmp_path):
+    """The MoE flagship (4 experts in the odd layers, top-2, capacity
+    1.5) at global batch 8 x 2048, 5 steps from one set of weights, on 4
+    GPUs: at fsdp 4 each rank holds one expert and the tokens move to it
+    by all-to-all (ep 4); at fsdp 2 x tp 2 two experts a rank, each
+    split over tp; at fsdp 2 x sp 2 (Ulysses) two experts a rank, the
+    sp ranks' capacity buffers summed and split between them.  Losses and grad norms within rtol of the one-card
+    step's while every token takes the experts it takes on one card, and
+    within flip_rtol from the first step in which one does not (both
+    sides' routes are recorded and compared), with at most max_flips
+    such tokens a step (f32); each rank launches every flash kernel once
+    a layer a step, and each GPU holds its fsdp x tp share of the state
+    plus the norms."""
+    _gpus(4)
+    ref = one_card(layers, dtype, flags=MOE_FLAGS)
+    routes = str(tmp_path / "routes")
+    flags = dict(MOE_FLAGS, use_ulysses_attention=True) if "sp" in axes \
+        else MOE_FLAGS
+    got = _flagship(axes, layers, dtype, flags, routes=routes)
+    flips = _route_flips(routes, ref["routes"])
+    replicated = 3 * 4 * _moe_params(layers)
+    norms = 3 * 4 * (2 * layers + 1) * 2048
+    shards = axes.get("fsdp", 1) * axes.get("tp", 1)
+    bound = replicated / shards + norms + MEMORY_MARGIN * replicated
+    print(json.dumps({"axes": axes, "layers": layers, "dtype": dtype,
+                      "moe": got, "one_card": ref, "route_flips": flips,
+                      "replicated_state": replicated,
+                      "memory_bound": bound}))
+    if max_flips is not None:
+        assert max(flips) <= max_flips, flips
+    first = next((i for i, n in enumerate(flips) if n), len(flips))
+    for name in ("losses", "norms"):
+        for i, (a, b) in enumerate(zip(got[name], ref[name])):
+            tol = (rtol if i < first else flip_rtol)[name]
+            assert abs(a - b) <= tol * abs(b), (name, i, a, b, flips)
+    assert got["launches"] == [layers * FLAGSHIP_STEPS] * 3
+    assert got["memory_after_init"] <= bound
+
+
+RANK_PP = r"""
+import importlib, json, sys, time
+import torch, torch.distributed as dist
+from volcano_tpu_torch.workloads import bootstrap, pipeline
+from volcano_tpu_torch.workloads import model as tm, train as tt
+fa = importlib.import_module("volcano_tpu_torch.workloads.ops.flash_attention")
+stages, slices, layers, dtype, batch, seq, steps, micro = (
+    int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]),
+    getattr(torch, sys.argv[4]), int(sys.argv[5]), int(sys.argv[6]),
+    int(sys.argv[7]), int(sys.argv[8]))
+bootstrap.initialize(device="cuda")
+n = dist.get_world_size()
+if slices:
+    mesh = pipeline.make_pp_mesh_over_slices(
+        stages, device_type="cuda",
+        slice_ids=[r * slices // n for r in range(n)])
+else:
+    mesh = pipeline.make_pp_mesh(stages, device_type="cuda")
+cfg = tm.flagship_config(n_layers=layers, dtype=dtype)
+gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)
+outer, blocks = pipeline.distribute_stages(
+    *pipeline.stack_stage_params(tm.init_params(cfg, gen(5), "cuda"), stages),
+    mesh)
+opt = tt.make_optimizer()
+state = opt.init(pipeline.joined(outer, blocks))
+torch.cuda.synchronize()
+torch.cuda.empty_cache()
+after_init = torch.cuda.memory_allocated()
+data = tt.synthetic_batch(gen(6), cfg, batch, seq)
+step = pipeline.make_pipelined_train_step(cfg, mesh, opt, micro)
+torch.cuda.reset_peak_memory_stats()
+fa.flash_fwd.launches = 0
+fa.flash_bwd.launches_dq = fa.flash_bwd.launches_dkv = 0
+losses, norms, ms = [], [], []
+for _ in range(steps):
+    t0 = time.monotonic()
+    outer, blocks, state, m = step(outer, blocks, state, data)
+    losses.append(m["loss"].item()); norms.append(m["grad_norm"].item())
+    torch.cuda.synchronize()
+    ms.append((time.monotonic() - t0) * 1e3)
+out = {"rank": dist.get_rank(), "coord": mesh.get_coordinate(),
+       "losses": losses, "norms": norms, "step_ms": ms,
+       "launches": [fa.flash_fwd.launches, fa.flash_bwd.launches_dq,
+                    fa.flash_bwd.launches_dkv],
+       "memory_after_init": after_init,
+       "peak_memory": torch.cuda.max_memory_allocated()}
+print(json.dumps(out))
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layers,dtype,rtol", [
+    (8, "bfloat16", RTOL_PP_BF16), (4, "float32", RTOL_FLAGSHIP_F32)],
+    ids=["L8_bf16", "L4_f32"])
+@pytest.mark.parametrize("stages,slices", [(4, 0), (2, 2)],
+                         ids=["pp4", "pp2_over_slices"])
+def test_flagship_pp_matches_one_card(stages, slices, layers, dtype, rtol,
+                                      one_card):
+    """The flagship pipelined over 4 GPUs, global batch 8 x 2048 in 4
+    microbatches, 5 steps from the one-card step's weights and batch: a
+    stage a GPU (pp 4), or a stage per slice of 2 GPUs (pp 2, the ranks
+    of a stage agreeing bit for bit).  f32 at 4 layers, since pp 4 needs
+    a layer count that divides over the stages.  Losses and grad norms
+    within rtol of the one-card step's; each rank launches every kernel
+    once a layer of its stage a microbatch a step."""
+    _gpus(4)
+    port = free_port()
+    outs = _run(
+        [[sys.executable, "-c", RANK_PP, str(stages), str(slices),
+          str(layers), dtype, str(FLAGSHIP_BATCH), str(FLAGSHIP_SEQ),
+          str(FLAGSHIP_STEPS), str(PP_MICROBATCHES)]] * 4,
+        [_base_env(TPU_WORKER_ID=r, NUM_PROCESSES=4, LOCAL_RANK=r,
+                   COORDINATOR_ADDRESS=f"127.0.0.1:{port}")
+         for r in range(4)])
+    for rc, _, err in outs:
+        assert rc == 0, err[-3000:]
+    ranks = [json.loads(out.strip().splitlines()[-1]) for _, out, _ in outs]
+    ref = one_card(layers, dtype)
+    print(json.dumps({"stages": stages, "slices": slices, "layers": layers,
+                      "dtype": dtype, "pp": ranks, "one_card": ref}))
+    for res in ranks:
+        for name in ("losses", "norms"):
+            torch.testing.assert_close(torch.tensor(res[name]),
+                                       torch.tensor(ref[name]),
+                                       rtol=rtol[name], atol=0)
+        assert res["losses"] == ranks[0]["losses"]
+        assert res["launches"] == [layers // stages * PP_MICROBATCHES
+                                   * FLAGSHIP_STEPS] * 3
+
+
+@pytest.mark.gpu
+def test_dryrun_multichip_on_nccl():
+    """The one-step matrix (`entry.dryrun_multichip`) on 4 GPUs over
+    nccl: every family of a 4-device run steps once, with finite
+    losses."""
+    _gpus(4)
+    from volcano_tpu_torch import entry
+    t0 = time.monotonic()
+    results = entry.dryrun_multichip(4, "cuda")
+    print(json.dumps({"dryrun_multichip": results,
+                      "wall_s": time.monotonic() - t0}))
+    assert list(results) == ["dp1-fsdp1-tp4", "ring-sp4-long", "ulysses-sp4",
+                             "moe-ep2", "gpipe-pp4", "gpipe-pp2-slices"]
+    assert all(v == v and v > 0 for v in results.values())
 
 
 # -- the flash kernels at the shapes they gained ---------------------------

@@ -57,6 +57,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys\n"
             "import volcano_tpu_torch.workloads.serve\n"
             "import volcano_tpu_torch.workloads.model\n"
+            "import volcano_tpu_torch.workloads.moe\n"
+            "import volcano_tpu_torch.workloads.pipeline\n"
             "import volcano_tpu_torch.workloads.convert\n"
             "import volcano_tpu_torch.workloads.train\n"
             "import volcano_tpu_torch.workloads.bootstrap\n"

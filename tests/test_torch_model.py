@@ -152,13 +152,16 @@ def test_params_from_jax_widens_bf16():
 
 
 def test_moe_raises_not_implemented():
+    """MoE is ported (tests/test_torch_moe.py): `n_experts > 0` raises no
+    NotImplementedError; init_params draws the odd blocks' experts and
+    the forward and DecoderLM take them."""
     cfg = tm.tiny_config(n_experts=4)
-    with pytest.raises(NotImplementedError):
-        tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    params = tm.init_params(tm.tiny_config(),
-                            torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError):
-        tm.forward(params, torch.zeros((1, 4), dtype=torch.long), cfg)
+    params = tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert "router" in params["blocks"][1]
+    tokens = torch.zeros((1, 4), dtype=torch.long)
+    logits = tm.forward(params, tokens, cfg)
+    assert logits.shape == (1, 4, cfg.vocab_size)
+    assert torch.equal(tm.DecoderLM(cfg, params)(tokens), logits)
 
 
 def test_resolve_device_without_gpu(monkeypatch):

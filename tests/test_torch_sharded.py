@@ -208,9 +208,11 @@ import numpy as np, torch, torch.distributed as dist
 from volcano_tpu_torch.workloads import bootstrap, checkpoint, mesh as mesh_lib
 from volcano_tpu_torch.workloads import model as tm, train as tt
 mode, ckpt, axes, timeout = sys.argv[1], sys.argv[2], json.loads(sys.argv[3]), float(sys.argv[4])
-bootstrap.initialize(device="cpu", timeout=timeout)
-mesh = mesh_lib.make_mesh(axes, "cpu")
-cfg = tm.tiny_config()
+flags = json.loads(sys.argv[5]) if len(sys.argv) > 5 else {}
+info = bootstrap.initialize(device="cpu", timeout=timeout)
+mesh = (mesh_lib.make_hybrid_mesh(axes, "cpu", slice_id=info.slice_id)
+        if "dcn" in axes else mesh_lib.make_mesh(axes, "cpu"))
+cfg = tm.tiny_config(**flags)
 opt = tt.make_optimizer(lr=1e-2, warmup_steps=1, mu_dtype=torch.bfloat16)
 seed = 0 if mode == "save" else 42
 params, state, _ = tt.init_sharded(torch.Generator().manual_seed(seed), cfg,
@@ -239,13 +241,17 @@ dist.destroy_process_group()
 """
 
 
-def _rank_dcp(mode, ckpt, axes):
+def _rank_dcp(mode, ckpt, axes, flags=None):
     world = int(np.prod(list(axes.values())))
+    slices = axes.get("dcn", 1)
     port = free_port()
     outs = run_procs(
         [[sys.executable, "-c", RANK_DCP, mode, ckpt, json.dumps(axes),
-          str(RANK_TIMEOUT_S)] for _ in range(world)],
-        [rank_env(r, world, port) for r in range(world)])
+          str(RANK_TIMEOUT_S), json.dumps(flags or {})]
+         for _ in range(world)],
+        [rank_env(r, world, port, **(
+            {"TPU_SLICE_ID": r * slices // world} if slices > 1 else {}))
+         for r in range(world)])
     for rc, _, err in outs:
         assert rc == 0, err[-3000:]
     return dict(np.load(ckpt + f".{mode}.npz"))
@@ -272,6 +278,37 @@ def test_sharded_checkpoint_restores_at_other_layouts(tmp_path):
             assert np.array_equal(x.float().numpy(),
                                   saved[f"{key}.{name}"]), (key, name)
     restored = _rank_dcp("restore", ckpt, {"dp": 2})
+    for name, x in saved.items():
+        if name != "loss":
+            assert np.array_equal(restored[name], x), name
+    np.testing.assert_allclose(restored["loss"], saved["loss"], rtol=SHARE)
+
+
+MOE_FLAGS = {"n_experts": 4, "moe_capacity_factor": 1.5}
+
+
+def test_moe_checkpoint_restores_at_other_layouts(tmp_path):
+    """An MoE state saved at dcn 2 x fsdp 2, where the expert leaves are
+    promoted to shard their expert dim over dcn x fsdp (each rank one
+    expert), restored bit-identically in a process with no group (plain
+    tensors) and by an fsdp 4 group (the expert dim over fsdp alone),
+    which then takes the same next step."""
+    ckpt = str(tmp_path / "ckpt")
+    saved = _rank_dcp("save", ckpt, {"dcn": 2, "fsdp": 2}, MOE_FLAGS)
+    cfg = tm.tiny_config(**MOE_FLAGS)
+    opt = tt.make_optimizer(lr=1e-2, warmup_steps=1, mu_dtype=torch.bfloat16)
+    params = tm.init_params(cfg, torch.Generator().manual_seed(42), "cpu")
+    state = opt.init(params)
+    params, state, got = checkpoint.restore(ckpt, params, state)
+    assert got == 2 and state["count"] == 2
+    assert "params.blocks.1.moe_gate" in {f"params.{k}" for k, _ in
+                                          tt.named_leaves(params)}
+    for key, tree in (("params", params), ("mu", state["mu"]),
+                      ("nu", state["nu"])):
+        for name, x in tt.named_leaves(tree):
+            assert np.array_equal(x.float().numpy(),
+                                  saved[f"{key}.{name}"]), (key, name)
+    restored = _rank_dcp("restore", ckpt, {"fsdp": 4}, MOE_FLAGS)
     for name, x in saved.items():
         if name != "loss":
             assert np.array_equal(restored[name], x), name

@@ -226,12 +226,18 @@ def _hold_step(axes, flags, tmp_path, steps=3, batch_size=4, seq=32):
     each leaf's largest, params by the Adam-step rule, and the gathered
     states equal on every rank.  Returns the attention dispatch's
     warnings: (each rank's, JAX's)."""
-    init, tokens, index, losses, norms, final, grads, jwarn = _jax_step(
-        axes, flags, steps, batch_size, seq)
+    jax_run = _jax_step(axes, flags, steps, batch_size, seq)
     src = tmp_path / "init.npz"
-    np.savez(src, tokens=tokens, **dict(_flat(init)))
+    np.savez(src, tokens=jax_run[1], **dict(_flat(jax_run[0])))
     ranks = _run_ranks(RANK_STEP, axes, json.dumps(flags), steps, src,
                        str(tmp_path / "out"))
+    return _assert_ranks_match(jax_run, ranks)
+
+
+def _assert_ranks_match(jax_run, ranks):
+    """`_hold_step`'s checks of each rank's results against `_jax_step`'s
+    run; returns (each rank's warnings, JAX's)."""
+    _, tokens, index, losses, norms, final, grads, jwarn = jax_run
     want = dict(_flat(final))
     for r, res in enumerate(ranks):
         np.testing.assert_array_equal(res["tokens"], tokens[index[r]])

@@ -108,6 +108,15 @@ def make_mesh(axis_sizes: Optional[Dict[str, int]] = None,
                             mesh_dim_names=AXES)
 
 
+def sub_mesh(mesh: DeviceMesh, axes: Sequence[str], name: str) -> DeviceMesh:
+    """The 1-D sub-mesh of `axes` (in mesh order; they need not be
+    adjacent), flattened under `name` when there are several.  Every
+    rank of the mesh must call it at the same point the first time
+    (flattening forms a group); later calls return the same mesh."""
+    axes = tuple(axes)
+    return mesh[axes[0]] if len(axes) == 1 else mesh[axes]._flatten(name)
+
+
 def group_by_slice(ranks: Sequence[int], num_slices: int,
                    slice_ids: Optional[Sequence[Optional[int]]] = None
                    ) -> List[List[int]]:

@@ -37,13 +37,19 @@ global sequence (`next_token_loss` with the sp group).  Ring and
 Ulysses flags do nothing without sp > 1, as in the reference with
 mesh=None.
 
-Not yet ported: mixture-of-experts blocks (`n_experts > 0` raises
-NotImplementedError).
+Mixture-of-experts (`cfg.n_experts > 0`): every odd block's MLP is a
+routed layer (`moe.moe_mlp`), dense or GShard capacity dispatch.  Its
+expert leaves are sharded on their expert dim over fsdp, or over
+(dcn, fsdp) on a hybrid mesh when the expert count divides
+(`param_specs`), and are never gathered: the tokens go to the experts
+by an all-to-all over that group (`_Axes.ep`), and the router is an
+ordinary fsdp weight.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import warnings
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -53,6 +59,10 @@ from torch import nn
 from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 from torch.utils.checkpoint import checkpoint
 
+from volcano_tpu_torch.workloads.mesh import sub_mesh
+from volcano_tpu_torch.workloads.moe import (EXPERT_DIM_PARAMS,
+                                             MOE_PARAM_SPECS,
+                                             init_moe_params, moe_mlp)
 from volcano_tpu_torch.workloads.ops.flash_attention import flash_attention
 from volcano_tpu_torch.workloads.ring_attention import (
     local_causal_attention, ring_attention, ring_shift)
@@ -68,8 +78,10 @@ class ModelConfig:
     d_ff: int = 1408
     max_seq: int = 2048
     dtype: torch.dtype = torch.bfloat16
-    # Mixture-of-experts (every other block routed); 0 = dense model.
-    # Only dense models are ported.
+    # Mixture-of-experts: every other block's MLP is a routed expert
+    # layer (experts sharded over fsdp x tp); 0 = dense model.  > 0
+    # capacity factor switches dense dispatch to GShard capacity
+    # dispatch (each expert takes at most ceil(cf * t * k / E) tokens)
     n_experts: int = 0
     expert_top_k: int = 2
     moe_aux_weight: float = 0.01
@@ -104,10 +116,17 @@ def flagship_config(**overrides) -> ModelConfig:
     return ModelConfig(**base)
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            "mixture-of-experts blocks are not ported yet (n_experts > 0)")
+def flagship_moe_config(**overrides) -> ModelConfig:
+    """The flagship's widths with the MoE settings of the reference's
+    one-step matrix (`__graft_entry__.py:187`): 4 experts in the odd
+    layers, top-2, capacity factor 1.5."""
+    base = dict(n_experts=4, expert_top_k=2, moe_capacity_factor=1.5)
+    base.update(overrides)
+    return flagship_config(**base)
+
+
+def _is_moe_block(cfg: ModelConfig, layer_idx: int) -> bool:
+    return cfg.n_experts > 0 and layer_idx % 2 == 1
 
 
 # -- parameters -------------------------------------------------------
@@ -118,7 +137,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     `generator` on its own device and moved to `device` (default: the
     generator's).  torch cannot reproduce `jax.random`: to compare with
     the JAX model, load its params through `convert.params_from_jax`."""
-    _dense_only(cfg)
     gdev = generator.device
     device = gdev if device is None else torch.device(device)
 
@@ -137,25 +155,32 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         "head": normal(d, cfg.vocab_size, std=scale),
         "blocks": [],
     }
-    for _ in range(cfg.n_layers):
-        params["blocks"].append({
+    for i in range(cfg.n_layers):
+        block = {
             "attn_norm": ones(d),
             "wq": normal(d, d, std=scale),
             "wk": normal(d, d, std=scale),
             "wv": normal(d, d, std=scale),
             "wo": normal(d, d, std=scale),
             "mlp_norm": ones(d),
-            "w_gate": normal(d, f, std=scale),
-            "w_up": normal(d, f, std=scale),
-            "w_down": normal(f, d, std=f ** -0.5),
-        })
+        }
+        if _is_moe_block(cfg, i):
+            block.update(init_moe_params(generator, d, f, cfg.n_experts,
+                                         scale, device))
+        else:
+            block.update({
+                "w_gate": normal(d, f, std=scale),
+                "w_up": normal(d, f, std=scale),
+                "w_down": normal(f, d, std=f ** -0.5),
+            })
+        params["blocks"].append(block)
     return params
 
 
 # -- sharding ---------------------------------------------------------
 
-# each dense leaf's mesh axis per dim (None: not sharded), as the
-# reference's PartitionSpecs; the MoE leaves wait for the MoE slice
+# each leaf's mesh axis per dim (None: not sharded), as the reference's
+# PartitionSpecs, the MoE leaves' included
 _PARAM_SPECS: Dict[str, Tuple[Optional[str], ...]] = {
     "embed": ("tp", "fsdp"),
     "final_norm": (None,),
@@ -169,6 +194,7 @@ _PARAM_SPECS: Dict[str, Tuple[Optional[str], ...]] = {
     "w_gate": ("fsdp", "tp"),
     "w_up": ("fsdp", "tp"),
     "w_down": ("tp", "fsdp"),
+    **MOE_PARAM_SPECS,
 }
 
 
@@ -183,15 +209,39 @@ def map_named(fn: Callable[[str, Any], Any],
     return out
 
 
-def param_specs(params) -> Dict[str, Any]:
+def _sizes(mesh) -> Dict[str, int]:
+    return dict(zip(mesh.mesh_dim_names, mesh.shape)) if mesh else {}
+
+
+def expert_axes(n_experts: int, mesh=None) -> Tuple[str, ...]:
+    """The mesh axes an expert leaf's expert dim shards over, the
+    expert-parallel group: (dcn, fsdp) on a hybrid mesh when the expert
+    count divides over them (experts over slices), else fsdp."""
+    sizes = _sizes(mesh)
+    n = sizes.get("dcn", 1) * sizes.get("fsdp", 1)
+    if sizes.get("dcn", 1) > 1 and n_experts % n == 0:
+        return ("dcn", "fsdp")
+    return ("fsdp",)
+
+
+def _spec(name: str, leaf, mesh) -> Tuple[Any, ...]:
+    spec = _PARAM_SPECS.get(name, (None,))
+    if name in EXPERT_DIM_PARAMS and \
+            expert_axes(leaf.shape[0], mesh) != ("fsdp",):
+        spec = (("dcn", "fsdp"),) + spec[1:]
+    return spec
+
+
+def param_specs(params, mesh=None) -> Dict[str, Any]:
     """The spec tree of a param tree: each leaf's tuple of mesh axes, one
     a dim, as the reference's `param_specs` gives its PartitionSpecs.
     Dense params never name dcn: they are replicated across slices, and
-    the gradient mean carries the one cross-slice reduction.  (The
-    reference's promotion of expert dims over dcn, which reads the mesh,
-    waits for the MoE slice.)"""
-    return map_named(lambda name, _: _PARAM_SPECS.get(name, (None,)),
-                     params)
+    the gradient mean carries the one cross-slice reduction.  On a
+    hybrid mesh the expert dim of the MoE expert leaves is promoted from
+    fsdp to (dcn, fsdp) when the expert count divides (`expert_axes`):
+    each slice holds E / (dcn fsdp) experts, and the token regroup's
+    all-to-all is the only expert traffic crossing dcn."""
+    return map_named(lambda name, leaf: _spec(name, leaf, mesh), params)
 
 
 def placements(spec, mesh) -> tuple:
@@ -208,7 +258,7 @@ def placements(spec, mesh) -> tuple:
 def param_shardings(params, mesh) -> Dict[str, Any]:
     """Each leaf's DTensor placements on `mesh` (`param_specs`)."""
     return map_named(lambda _, spec: placements(spec, mesh),
-                     param_specs(params))
+                     param_specs(params, mesh))
 
 
 def distribute(tree: Dict[str, Any], mesh) -> Dict[str, Any]:
@@ -216,10 +266,10 @@ def distribute(tree: Dict[str, Any], mesh) -> Dict[str, Any]:
     whole tensors on every rank, as DTensors laid out by
     `param_shardings`: each rank keeps a copy of its shard only.
     Raises unless every sharded dim divides over its axes."""
-    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    sizes = _sizes(mesh)
 
     def shard(name, x):
-        spec = _PARAM_SPECS.get(name, (None,))
+        spec = _spec(name, x, mesh)
         for dim, axes in enumerate(spec):
             n = 1
             for axis in (axes if isinstance(axes, tuple) else (axes,)):
@@ -237,10 +287,12 @@ class _Axes:
     """The fsdp, tp and sp process groups the forward's collectives run
     over; None for an axis of size 1 (and for all without a mesh), where
     the collectives are skipped.  `sp_rank` is this rank's block of the
-    sequence."""
+    sequence.  With an MoE `cfg`: `ep`, the expert-parallel group
+    (`expert_axes`), and `tokens`, every rank of the mesh, over which
+    the aux loss's token fractions are averaged (`moe._route`)."""
 
-    def __init__(self, mesh=None):
-        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape)) if mesh else {}
+    def __init__(self, mesh=None, cfg: Optional[ModelConfig] = None):
+        sizes = _sizes(mesh)
 
         def group(axis):
             return mesh.get_group(axis) if sizes.get(axis, 1) > 1 else None
@@ -249,6 +301,54 @@ class _Axes:
         self.tp_size = sizes.get("tp", 1)
         self.sp_size = sizes.get("sp", 1)
         self.sp_rank = mesh.get_local_rank("sp") if self.sp else 0
+        self.ep = self.tokens = None
+        self.tokens_size = 1
+        if mesh is not None and cfg is not None and cfg.n_experts > 0:
+            axes = expert_axes(cfg.n_experts, mesh)
+            if math.prod(sizes[a] for a in axes) > 1:
+                self.ep = sub_mesh(mesh, axes, "ep").get_group()
+            if mesh.size() > 1:
+                self.tokens = sub_mesh(mesh, mesh.mesh_dim_names,
+                                       "moe_tokens").get_group()
+                self.tokens_size = mesh.size()
+
+    def copy_to_tp(self, x):
+        return _copy_to_tp(x, self)
+
+    def reduce_from_tp(self, x):
+        return _reduce_from_tp(x, self)
+
+    def scatter_over_sp(self, x, dim: int):
+        """The sum of the sp ranks' x, this rank's chunk along `dim`."""
+        return x if self.sp is None else _Scatter.apply(x, dim, self.sp)
+
+    def gather_over_sp(self, x, dim: int):
+        """The sp ranks' chunks of `scatter_over_sp` put back together,
+        on every sp rank (each uses its own part of the gradient)."""
+        return x if self.sp is None else _Gather.apply(x, dim, self.sp, True)
+
+
+def _all_gather(x, dim: int, group):
+    """x's shards over `group` concatenated along `dim`."""
+    n = dist.get_world_size(group)
+    # the shards stacked along a new leading dim, passed as their
+    # concatenation along dim 0 as the collective takes them
+    buf = x.new_empty((n,) + tuple(x.shape))
+    dist.all_gather_into_tensor(buf.flatten(0, 1), x.contiguous(),
+                                group=group)
+    return buf.movedim(0, dim).flatten(dim, dim + 1)
+
+
+def _reduce_scatter(x, dim: int, group):
+    """x summed over `group`, this rank's chunk along `dim`."""
+    chunks = x.chunk(dist.get_world_size(group), dim=dim)
+    out = x.new_empty(chunks[0].shape)
+    # contiguous: cat keeps a channels-last-like layout of its inputs
+    # (an attention gradient has one), which the collective would read
+    # as if it were row-major
+    dist.reduce_scatter_tensor(out, torch.cat(chunks).contiguous(),
+                               group=group)
+    return out
 
 
 class _Gather(torch.autograd.Function):
@@ -260,28 +360,29 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group, partial):
         ctx.dim, ctx.group, ctx.partial = dim, group, partial
-        n = dist.get_world_size(group)
-        # the shards stacked along a new leading dim, passed as their
-        # concatenation along dim 0 as the collective takes them
-        buf = x.new_empty((n,) + tuple(x.shape))
-        dist.all_gather_into_tensor(buf.flatten(0, 1), x.contiguous(),
-                                    group=group)
-        return buf.movedim(0, dim).flatten(dim, dim + 1)
+        return _all_gather(x, dim, group)
 
     @staticmethod
     def backward(ctx, grad):
-        n = dist.get_world_size(ctx.group)
-        chunks = grad.chunk(n, dim=ctx.dim)
         if not ctx.partial:
-            return (chunks[dist.get_rank(ctx.group)].contiguous(), None,
-                    None, None)
-        out = grad.new_empty(chunks[0].shape)
-        # contiguous: cat keeps a channels-last-like layout of its inputs
-        # (an attention gradient has one), which the collective would
-        # read as if it were row-major
-        dist.reduce_scatter_tensor(out, torch.cat(chunks).contiguous(),
-                                   group=ctx.group)
-        return out, None, None, None
+            n = dist.get_world_size(ctx.group)
+            return (grad.chunk(n, dim=ctx.dim)[dist.get_rank(ctx.group)]
+                    .contiguous(), None, None, None)
+        return _reduce_scatter(grad, ctx.dim, ctx.group), None, None, None
+
+
+class _Scatter(torch.autograd.Function):
+    """Reduce-scatter x along `dim` over `group`: the sum over the ranks,
+    this rank's chunk.  Backward: the chunks' gradients all-gathered."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _reduce_scatter(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_gather(grad, ctx.dim, ctx.group), None, None
 
 
 class _CopyToTp(torch.autograd.Function):
@@ -409,6 +510,14 @@ def _block(x, blk, cfg: ModelConfig, positions, ax: _Axes):
     x = x + _attention(_rms_norm(x, blk["attn_norm"]), blk, cfg, positions,
                        ax)
     h = _rms_norm(x, blk["mlp_norm"])
+    if "router" in blk:
+        # the router gathered over fsdp like any weight; the expert
+        # leaves stay this rank's (the tokens go to them)
+        y, aux = moe_mlp(h, dict(blk, router=_use(blk["router"], "router",
+                                                  ax)),
+                         cfg.n_experts, cfg.expert_top_k,
+                         cfg.moe_capacity_factor, ax)
+        return x + y, aux
     return x + _mlp(h, blk, ax), torch.zeros((), device=x.device)
 
 
@@ -417,30 +526,41 @@ def forward_with_aux(params, tokens, cfg: ModelConfig, mesh=None):
     With a mesh, params are this rank's local shards (plain tensors laid
     out by `param_shardings`) and tokens its rows and, under sp, its
     block of the sequence."""
-    _dense_only(cfg)
-    ax = _Axes(mesh)
+    ax = _Axes(mesh, cfg)
     b, t = tokens.shape
     # the table gathered whole for the lookup, as the reference
     # replicates it
     x = _use(params["embed"], "embed", ax, whole=True)[tokens].to(cfg.dtype)
     positions = (ax.sp_rank * t + torch.arange(t, device=tokens.device))[
         None, :].expand(b, t)
+    x, aux_total = _apply_blocks(x, params["blocks"], cfg, positions, ax)
+    return _logits(x, params, cfg, ax), aux_total
+
+
+def _apply_blocks(x, blocks, cfg: ModelConfig, positions, ax: _Axes):
+    """(x after `blocks`, the sum of their MoE aux losses); under
+    cfg.remat each block keeps only its inputs and is recomputed in the
+    backward."""
     aux_total = torch.zeros((), device=x.device)
-    for blk in params["blocks"]:
+    for blk in blocks:
         if cfg.remat and torch.is_grad_enabled():
-            # keep only the block's inputs; recompute it in the backward
             x, aux = checkpoint(_block, x, blk, cfg, positions, ax,
                                 use_reentrant=False)
         else:
             x, aux = _block(x, blk, cfg, positions, ax)
         aux_total = aux_total + aux
+    return x, aux_total
+
+
+def _logits(x, params, cfg: ModelConfig, ax: _Axes):
+    """The final norm and the head over x.  Logits stay in the model
+    dtype, as in the reference; under tp each rank computes its vocab
+    columns, gathered before the loss."""
     x = _copy_to_tp(_rms_norm(x, params["final_norm"]), ax)
-    # logits stay in the model dtype, as in the reference; under tp each
-    # rank computes its vocab columns, gathered before the loss
     logits = x @ _use(params["head"], "head", ax).to(cfg.dtype)
     if ax.tp is not None:
         logits = _Gather.apply(logits, logits.dim() - 1, ax.tp, False)
-    return logits, aux_total
+    return logits
 
 
 def forward(params, tokens, cfg: ModelConfig, mesh=None) -> torch.Tensor:
@@ -481,8 +601,8 @@ def next_token_loss(logits, tokens, sp=None) -> torch.Tensor:
 
 
 def loss_fn(params, batch, cfg: ModelConfig, mesh=None) -> torch.Tensor:
-    """Next-token cross entropy (+ MoE load-balancing aux, 0 for the
-    dense models ported so far); batch: {"tokens": [b, t]}.  Under sp
+    """Next-token cross entropy (+ MoE load-balancing aux);
+    batch: {"tokens": [b, t]}.  Under sp
     this is the rank's share of its rows' loss (`next_token_loss`)."""
     tokens = batch["tokens"]
     logits, moe_aux = forward_with_aux(params, tokens, cfg, mesh)
@@ -497,7 +617,6 @@ class DecoderLM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, Any]):
         super().__init__()
-        _dense_only(cfg)
         self.cfg = cfg
         for name in ("embed", "final_norm", "head"):
             self.register_parameter(

@@ -20,12 +20,13 @@ reference's `P(data_axes, "sp")`).  The step runs the forward on the
 local shards (`model.forward_with_aux` gathers each weight over fsdp at
 its use) and reduces the gradients to the global batch's mean: under
 sp each rank's gradients are its partials of its rows' loss, summed
-over sp first; then a leaf sharded over fsdp comes back from the
-backward reduce-scattered (summed) over fsdp and is summed over
-(dcn, dp), every other leaf is summed over the flattened data group,
-and both are divided by the data group's size.  The clip's global norm
-sums each leaf's local squares over the axes it is sharded on
-(`grad_global_norm`; sp holds whole copies, so it counts them once), and
+over sp first; then each leaf is summed over the data axes it is not
+sharded over (a leaf sharded over fsdp comes back from the backward
+reduce-scattered, summed, over fsdp; an MoE expert leaf arrives summed
+over its expert-parallel group, fsdp or dcn x fsdp, whose tokens it
+processed), and divided by the data group's size.  The clip's global norm
+sums each leaf's local squares over the axes it can be sharded on,
+dcn x fsdp x tp (`grad_global_norm`; sp holds whole copies, so it counts them once), and
 AdamW runs on the local shards.  The loss is the rows' mean over their
 b * (t - 1) positions (under sp the sum of each rank's share), so the
 mean over the data group equals the reference's global mean only with
@@ -43,6 +44,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Shard
 
+from volcano_tpu_torch.workloads import mesh as mesh_lib
 from volcano_tpu_torch.workloads import model as model_lib
 from volcano_tpu_torch.workloads.model import ModelConfig
 
@@ -57,7 +59,7 @@ B1, B2, EPS = 0.9, 0.999, 1e-8
 BUCKET_ELEMS = 1 << 26
 # the names of the flattened sub-meshes: the data axes (dcn x dp x
 # fsdp), the replica axes of an fsdp shard (dcn x dp) and the axes a
-# leaf shards over (fsdp x tp)
+# leaf shards over (fsdp x tp, with dcn on a hybrid mesh)
 DATA_MESH = "data"
 REPLICA_MESH = "replica"
 SHARD_MESH = "shard"
@@ -211,27 +213,27 @@ def data_axes(mesh) -> tuple:
         else ("dp", "fsdp")
 
 
-def _sub_mesh(mesh: DeviceMesh, axes: tuple, name: str) -> DeviceMesh:
-    """The 1-D sub-mesh of `axes`, flattened under `name` when there
-    are several.  Every rank must call it at the same point the first
-    time (flattening forms a group); later calls return the same mesh."""
-    return mesh[axes[0]] if len(axes) == 1 else mesh[axes]._flatten(name)
-
-
 def data_mesh(mesh: DeviceMesh) -> DeviceMesh:
     """The 1-D sub-mesh of the data axes flattened, whose group carries
     the gradient reduction."""
-    return _sub_mesh(mesh, data_axes(mesh), DATA_MESH)
+    return mesh_lib.sub_mesh(mesh, data_axes(mesh), DATA_MESH)
 
 
 def _replica_mesh(mesh: DeviceMesh) -> DeviceMesh:
     """The data axes but fsdp: the ranks that hold the same fsdp shard."""
-    return _sub_mesh(mesh, data_axes(mesh)[:-1], REPLICA_MESH)
+    return mesh_lib.sub_mesh(mesh, data_axes(mesh)[:-1], REPLICA_MESH)
+
+
+def _shard_axes(mesh: DeviceMesh) -> tuple:
+    """The axes a leaf can shard over: fsdp x tp, and dcn on a hybrid
+    mesh (MoE expert leaves promoted over slices)."""
+    return ("dcn", "fsdp", "tp") if "dcn" in mesh.mesh_dim_names \
+        else ("fsdp", "tp")
 
 
 def _shard_mesh(mesh: DeviceMesh) -> DeviceMesh:
-    """The axes params shard over, fsdp x tp."""
-    return _sub_mesh(mesh, ("fsdp", "tp"), SHARD_MESH)
+    """The 1-D sub-mesh of `_shard_axes`."""
+    return mesh_lib.sub_mesh(mesh, _shard_axes(mesh), SHARD_MESH)
 
 
 def mesh_device(mesh: DeviceMesh) -> torch.device:
@@ -341,33 +343,40 @@ def _reduce_grads(grads: List[torch.Tensor], placements: List[tuple],
                   mesh: DeviceMesh) -> None:
     """Turn each rank's local gradients, in place, into its shards of
     the global batch's mean gradient.  Under sp every leaf is first
-    summed over sp (each rank's are its partials of its rows' loss).  A
-    leaf sharded over fsdp arrives summed over fsdp by the backward's
-    reduce-scatter and is summed over the rest of the data axes; every
-    other leaf is summed over all of them; both are divided by the data
-    group's size."""
+    summed over sp (each rank's are its partials of its rows' loss).
+    Then each leaf is summed over the data axes it is not sharded over:
+    over fsdp it arrives summed already (the backward's reduce-scatter,
+    or, for an MoE expert leaf, the tokens of its expert-parallel group
+    that it processed).  Every leaf is divided by the data group's
+    size."""
     sp = _sp_group(mesh)
     if sp is not None:
         _sum_and_divide(grads, sp, 1)
-    data = data_mesh(mesh)
-    n = data.size()
-    by_fsdp = [_sharded_over(p, mesh, ("fsdp",)) > 1 for p in placements]
-    _sum_and_divide([g for g, s in zip(grads, by_fsdp) if not s],
-                    data.get_group(), n)
-    sharded = [g for g, s in zip(grads, by_fsdp) if s]
-    if sharded:
-        replica = _replica_mesh(mesh)
-        _sum_and_divide(sharded, replica.get_group()
-                        if replica.size() > 1 else None, n)
+    axes = data_axes(mesh)
+    n = data_mesh(mesh).size()
+    by_axes: Dict[tuple, List[torch.Tensor]] = {axes: []}
+    for g, place in zip(grads, placements):
+        rest = tuple(a for a in axes
+                     if not _sharded_over(place, mesh, (a,)) > 1)
+        by_axes.setdefault(rest, []).append(g)
+    names = {axes: DATA_MESH, axes[:-1]: REPLICA_MESH}
+    for rest, members in by_axes.items():
+        if not members:
+            continue
+        group_mesh = mesh_lib.sub_mesh(mesh, rest, names.get(
+            rest, "_".join(rest))) if rest else None
+        _sum_and_divide(members, group_mesh.get_group()
+                        if group_mesh is not None and group_mesh.size() > 1
+                        else None, n)
 
 
 def grad_global_norm(grads: Dict[str, Any], mesh: DeviceMesh
                      ) -> torch.Tensor:
     """optax's `global_norm` of the global gradient from each rank's
     shards of it (DTensors; the same on every rank): the local squares
-    summed over the fsdp x tp ranks, each leaf weighted by its shards
-    over the group's size, so a leaf held whole by every rank counts
-    once.  Without a sharded axis it is `global_norm` of the local
+    summed over the ranks of `_shard_axes`, each leaf weighted by its
+    shards over the group's size, so a leaf held whole by every rank
+    counts once.  Without a sharded axis it is `global_norm` of the local
     gradients."""
     g_leaves = list(leaves(grads))
     local_grads = [local(g) for g in g_leaves]
@@ -376,7 +385,7 @@ def grad_global_norm(grads: Dict[str, Any], mesh: DeviceMesh
     if n == 1:
         return global_norm(local_grads)
     weights = torch.tensor(
-        [_sharded_over(g.placements, mesh, ("fsdp", "tp")) / n
+        [_sharded_over(g.placements, mesh, _shard_axes(mesh)) / n
          for g in g_leaves],
         dtype=torch.float32, device=local_grads[0].device)
     norms = torch.stack([torch.linalg.vector_norm(g.float())

@@ -12,7 +12,7 @@ subset (DeepSpeed-Ulysses):
 Because each rank sees the whole sequence for its heads, the inner
 attention can be the hand-written flash kernels (`use_flash`).  The
 exchange is `all_to_all_single` on a contiguous buffer inside
-`_AllToAll`, whose backward is the inverse exchange.
+`AllToAll`, whose backward is the inverse exchange.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ def all_to_all(x, group, split_dim: int, concat_dim: int):
     return torch.cat(recv.unbind(0), dim=concat_dim)
 
 
-class _AllToAll(torch.autograd.Function):
+class AllToAll(torch.autograd.Function):
     """`all_to_all`; the backward is the inverse exchange (split and
     concatenate swapped)."""
 
@@ -60,10 +60,10 @@ def ulysses_attention(q, k, v, group, use_flash: bool = False):
         return local_causal_attention(q, k, v)
     # heads split over the ranks, the sequence chunks received
     # concatenated in rank order: the global sequence in token order
-    qg, kg, vg = (_AllToAll.apply(x, group, 2, 1) for x in (q, k, v))
+    qg, kg, vg = (AllToAll.apply(x, group, 2, 1) for x in (q, k, v))
     if use_flash:
         og = flash_attention(qg, kg, vg)
     else:
         og = local_causal_attention(qg, kg, vg)
     # back to all heads on the local sequence shard
-    return _AllToAll.apply(og, group, 1, 2)
+    return AllToAll.apply(og, group, 1, 2)

@@ -45,7 +45,17 @@ forward, two more steps with dense dispatch, and one f32 step at 2
 layers on the card against the CPU (gradients and routes); (13)
 `phase_pp`: phase_train's model, weights and batch through the GPipe
 step at pp 1 on a one-rank nccl group, 4 microbatches, held against
-phase_train's losses and norms.
+phase_train's losses and norms; (14) `phase_schedule`: the port's
+control plane on this machine -- its node (the GPUs torch sees, the
+product as GPU Feature Discovery names it) verified Healthy by three
+syncs of the node agent's GPU chip collector and health handler; a
+backlog of 128 vcjobs in two queues (1- and 8-GPU single-host jobs,
+gangs of 4, 16 and 32 hosts, every third gang capped at its IB fabric)
+scheduled under the default conf onto 1024 simulated HGX H100 hosts in
+32 fabrics until a cycle binds nothing, with each cycle's wall time and
+the invariants of what is bound; and a vcjob with the torch and svc job
+plugins scheduled onto this node and launched as the port's worker on
+cuda with the env the plugins injected.
 
 The kernel phases (3)-(5) also hold and time the kernels at the shapes
 beyond d in {128, 256} and t % 128 == 0 (d = 384 and 512 on the
@@ -1495,6 +1505,303 @@ def phase_pp(model, train, pipeline, fa, bootstrap, tr):
                 profile=profile)
 
 
+# -- phase_schedule: the control plane's scheduling path ---------------
+
+# the cluster phase_schedule schedules: 32 InfiniBand fabrics of 32
+# HGX H100 hosts (a DGX H100 SuperPOD scalable unit each), 8192 GPUs,
+# beside this machine's own node
+SCHED_HOSTS = 1024
+SCHED_FABRIC_HOSTS = 32
+SCHED_JOBS = 128
+SCHED_MAX_CYCLES = 64
+# the backlog's mix, one job of each in turn: (pods, GPUs a pod)
+SCHED_MIX = ((1, 1), (1, 1), (1, 8), (4, 8), (4, 8), (16, 8), (32, 8),
+             (32, 8))
+# keeps the backlog off this machine's node; the end-to-end job
+# tolerates it
+LOCAL_TAINT = "volcano-tpu.io/smoke-local"
+HOSTNAME_LABEL = "kubernetes.io/hostname"
+
+
+def local_node():
+    """This machine as a node of the port's control plane: the GPUs
+    torch sees, GPU Feature Discovery's product label, and a
+    single-host NVLink domain of its own."""
+    from volcano_tpu_torch.api.goodput import GENERATION_LABEL, generation_of
+    from volcano_tpu_torch.api.node_info import Node
+    from volcano_tpu_torch.api.pod import Taint
+    from volcano_tpu_torch.api.resource import GPU
+    from volcano_tpu_torch.api.types import (GPU_CLIQUE_LABEL,
+                                             GPU_DOMAIN_SHAPE_LABEL,
+                                             GPU_HOST_INDEX_LABEL,
+                                             GPU_PRODUCT_LABEL)
+    name = socket.gethostname()
+    n_gpus = torch.cuda.device_count()
+    labels = {
+        GPU_PRODUCT_LABEL:
+            torch.cuda.get_device_properties(0).name.replace(" ", "-"),
+        GPU_CLIQUE_LABEL: name, GPU_DOMAIN_SHAPE_LABEL: f"1x{n_gpus}",
+        GPU_HOST_INDEX_LABEL: "0", HOSTNAME_LABEL: name}
+    labels[GENERATION_LABEL] = generation_of(labels)
+    return Node(name=name, labels=labels,
+                allocatable={"cpu": os.cpu_count() or 1, "memory": "64Gi",
+                             GPU: n_gpus, "pods": 110},
+                taints=[Taint(key=LOCAL_TAINT, value="true")])
+
+
+def agent_verdict(cluster, node):
+    """Three syncs of the port's node agent with the GPU chip collector
+    (the driver's /dev/nvidia<N> nodes) and the GPU health handler
+    alone: the verdict must be Healthy and the node uncordoned."""
+    from volcano_tpu_torch.agent.agent import (AGENT_CORDONED_ANNOTATION,
+                                               GPU_CHIPS_ANNOTATION,
+                                               GPU_HEALTHY_LABEL, NodeAgent)
+    from volcano_tpu_torch.agent.collect import (CompositeUsageProvider,
+                                                 GpuChipCollector)
+    from volcano_tpu_torch.agent.handlers import GpuHealthHandler
+    collector = GpuChipCollector()
+    agent = NodeAgent(cluster, node.name,
+                      provider=CompositeUsageProvider([collector]),
+                      handlers=[GpuHealthHandler])
+    for _ in range(GpuHealthHandler.FAIL_SYNCS):
+        agent.sync()
+    seen = collector.collect(node.name)
+    node = cluster.nodes[node.name]
+    report = cluster.slicehealthreports.get(node.name)
+    out = dict(declared=torch.cuda.device_count(),
+               detected=seen.get("gpu_chips_detected", 0),
+               healthy=seen.get("gpu_chips_healthy", 0),
+               verdict=report.verdict if report else None,
+               label=node.labels.get(GPU_HEALTHY_LABEL),
+               chips=node.annotations.get(GPU_CHIPS_ANNOTATION),
+               cordoned=node.unschedulable or
+               AGENT_CORDONED_ANNOTATION in node.annotations)
+    log(f"[schedule] agent on {node.name}: {out['detected']} GPU device "
+        f"node(s) detected, {out['healthy']} healthy, torch sees "
+        f"{out['declared']}; verdict {out['verdict']}, label "
+        f"{out['label']}, cordoned {out['cordoned']}")
+    if out["detected"] < out["declared"] or out["verdict"] != "Healthy" or \
+            out["label"] != "true" or out["cordoned"]:
+        raise AssertionError(f"the agent's verdict on this node: {out}")
+    return out
+
+
+def backlog_jobs():
+    """SCHED_JOBS vcjobs over two queues in SCHED_MIX's turn: single-host
+    jobs of 1 and 8 GPUs and gangs of 4, 16 and 32 whole hosts, every
+    third gang with a hard topology capped at the IB fabric's tier."""
+    from volcano_tpu_torch.api.pod import Container, Pod
+    from volcano_tpu_torch.api.podgroup import NetworkTopologySpec
+    from volcano_tpu_torch.api.resource import GPU
+    from volcano_tpu_torch.api.vcjob import TaskSpec, VCJob
+    jobs, gangs = [], 0
+    for i in range(SCHED_JOBS):
+        pods, gpus = SCHED_MIX[i % len(SCHED_MIX)]
+        hard = False
+        if pods > 1:
+            hard = gangs % 3 == 0
+            gangs += 1
+        jobs.append(VCJob(
+            name=f"bk{i:03d}", min_available=pods,
+            queue=("research", "prod")[i % 2],
+            network_topology=NetworkTopologySpec(highest_tier_allowed=2)
+            if hard else None,
+            tasks=[TaskSpec(name="worker", replicas=pods, template=Pod(
+                name="t", containers=[Container(
+                    requests={"cpu": 8, "memory": "32Gi", GPU: gpus})]))]))
+    return jobs
+
+
+def cycle_spans(hard_keys, seen):
+    """The last scheduling cycle by the flight recorder's spans
+    (volcano_tpu_torch/trace.py): ms by action, and the ms of the
+    allocate action's job spans of the hard-topology gangs.  `seen`
+    holds the trace numbers of earlier cycles."""
+    from volcano_tpu_torch import trace
+    doc = trace.recent_traces(1)[-1]
+    if doc["seq"] in seen:
+        raise AssertionError("the flight recorder kept no trace of the "
+                             "last cycle")
+    seen.add(doc["seq"])
+    root = doc["root"]
+    actions = {c["name"]: round(c["dur"] * 1e3, 3)
+               for c in root.get("children", ()) if c["kind"] == "action"}
+    hard = sum(j["dur"] for c in root.get("children", ())
+               if c["name"] == "allocate"
+               for j in c.get("children", ())
+               if j["kind"] == "job" and j["labels"].get("job") in hard_keys)
+    return dict(actions_ms=actions, hard_gangs_ms=hard * 1e3)
+
+
+def schedule_backlog(cluster, mgr, sched, local_name):
+    """Controller syncs, scheduling cycles and cluster ticks until a cycle
+    binds nothing; the invariants of what is bound."""
+    from volcano_tpu_torch.api.queue import Queue
+    from volcano_tpu_torch.api.resource import GPU, Resource
+    from volcano_tpu_torch.api.types import JobPhase
+    from volcano_tpu_torch.controllers.hypernode import IB_FABRIC_LABEL
+    cluster.add_queue(Queue(name="research", weight=1))
+    cluster.add_queue(Queue(name="prod", weight=2))
+    jobs = [cluster.add_vcjob(j) for j in backlog_jobs()]
+    hard_keys = {j.key for j in jobs if j.network_topology is not None}
+    cycles, seen = [], set()
+    while len(cycles) < SCHED_MAX_CYCLES:
+        before = len(cluster.binds)
+        t0 = time.perf_counter()
+        mgr.sync_all()
+        t1 = time.perf_counter()
+        sched.run_once()
+        t2 = time.perf_counter()
+        cluster.tick()
+        bound = len(cluster.binds) - before
+        pods = [p for p in cluster.pods.values() if p.node_name]
+        gpus = sum(Resource.from_resource_list(c.requests).get(GPU)
+                   for p in pods for c in p.containers)
+        running = sum(1 for j in jobs
+                      if cluster.vcjobs[j.key].phase is JobPhase.RUNNING)
+        cycles.append(dict(sync_ms=(t1 - t0) * 1e3, cycle_ms=(t2 - t1) * 1e3,
+                           bound=bound, jobs_running=running,
+                           gpus_bound=gpus, **cycle_spans(hard_keys, seen)))
+        log(f"[schedule] cycle {len(cycles)}: controllers "
+            f"{cycles[-1]['sync_ms']:.3f} ms, scheduler "
+            f"{cycles[-1]['cycle_ms']:.3f} ms (actions "
+            f"{cycles[-1]['actions_ms']}, hard-topology gangs' allocate "
+            f"{cycles[-1]['hard_gangs_ms']:.3f} ms), {bound} pod(s) bound, "
+            f"{running} job(s) running, {gpus:g} GPUs bound")
+        if len(cycles) > 1 and bound == 0:
+            break
+    else:
+        raise AssertionError(f"still binding after {SCHED_MAX_CYCLES} cycles")
+
+    partial, spread, straddle = [], [], []
+    for job in jobs:
+        pods = [p for p in cluster.pods.values() if p.owner == job.uid]
+        nodes = [p.node_name for p in pods if p.node_name]
+        if nodes and len(nodes) != job.min_available:
+            partial.append(job.name)
+        if nodes and job.network_topology is not None and len({
+                cluster.nodes[n].labels.get(IB_FABRIC_LABEL)
+                for n in nodes}) != 1:
+            spread.append(job.name)
+        if job.min_available == 1 and len(set(nodes)) > 1:
+            straddle.append(job.name)
+    placed = {j.name for j in jobs if any(
+        p.node_name for p in cluster.pods.values() if p.owner == j.uid)}
+    hard = [j.name for j in jobs if j.network_topology is not None]
+    log(f"[schedule] {len(placed)} of {len(jobs)} jobs placed, "
+        f"{len(set(hard) & placed)} of {len(hard)} hard-topology gangs; "
+        f"partially bound gangs {partial}, hard gangs across fabrics "
+        f"{spread}, single-host jobs across hosts {straddle}")
+    if partial or spread or straddle or not set(hard) & placed:
+        raise AssertionError("the backlog's placement breaks an invariant")
+    if any(p.node_name == local_name for p in cluster.pods.values()):
+        raise AssertionError("a backlog pod landed on this machine's node")
+    return dict(cycles=cycles, jobs=len(jobs), jobs_placed=len(placed),
+                hard_gangs=len(hard), hard_gangs_placed=len(set(hard) & placed))
+
+
+def scheduled_worker(cluster, mgr, sched, node, bootstrap):
+    """A one-pod vcjob with the torch and svc job plugins, pinned to this
+    machine's node by its hostname label, synced until Running; then its
+    pod launched as `python -m volcano_tpu_torch.workloads.worker` with
+    the env the plugins injected.  Only the coordinator's host (the svc
+    plugin's DNS name, rewritten to 127.0.0.1) and CUDA_VISIBLE_DEVICES
+    (as launch_worker sets it) are overridden: no WORKER_DEVICE, so it
+    runs on cuda."""
+    from volcano_tpu_torch.api.pod import Container, Pod, Toleration
+    from volcano_tpu_torch.api.resource import GPU
+    from volcano_tpu_torch.api.types import JobPhase
+    from volcano_tpu_torch.api.vcjob import TaskSpec, VCJob
+    t0 = time.monotonic()
+    job = cluster.add_vcjob(VCJob(
+        name="smoke", min_available=1, plugins={"torch": [], "svc": []},
+        tasks=[TaskSpec(name="worker", replicas=1, template=Pod(
+            name="t", node_selector={HOSTNAME_LABEL: node.name},
+            tolerations=[Toleration(key=LOCAL_TAINT, operator="Exists")],
+            containers=[Container(requests={"cpu": 4, GPU: 1})]))]))
+    syncs = 0
+    while cluster.vcjobs[job.key].phase is not JobPhase.RUNNING:
+        if syncs == 5:
+            raise AssertionError(
+                f"the end-to-end job is {cluster.vcjobs[job.key].phase} "
+                f"after {syncs} cycles")
+        mgr.sync_all()
+        sched.run_once()
+        cluster.tick()
+        syncs += 1
+    schedule_s = time.monotonic() - t0
+    (pod,) = [p for p in cluster.pods.values() if p.owner == job.uid]
+    injected = dict(pod.containers[0].env)
+    contract = {bootstrap.ENV_WORKER_ID, bootstrap.ENV_HOSTNAMES,
+                bootstrap.ENV_COORDINATOR, bootstrap.ENV_NUM_PROCESSES}
+    if pod.node_name != node.name or not contract <= set(injected):
+        raise AssertionError(f"the pod is on {pod.node_name!r} with env "
+                             f"{sorted(injected)}")
+    host, _, port = injected[bootstrap.ENV_COORDINATOR].rpartition(":")
+    env = {k: v for k, v in os.environ.items()
+           if k not in contract and k not in (
+               "WORKER_DEVICE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+               bootstrap.ENV_SLICE_ID, bootstrap.ENV_NUM_SLICES)}
+    env.update(injected)
+    env.update({bootstrap.ENV_COORDINATOR: f"127.0.0.1:{port}",
+                "CUDA_VISIBLE_DEVICES": os.environ.get(
+                    "CUDA_VISIBLE_DEVICES", "0").split(",")[0],
+                "PYTHONPATH": os.pathsep.join(
+                    p for p in (REPO, os.environ.get("PYTHONPATH")) if p)})
+    t1 = time.monotonic()
+    res = subprocess.run(
+        [sys.executable, "-m", "volcano_tpu_torch.workloads.worker"],
+        env=env, cwd=REPO, capture_output=True, text=True,
+        timeout=WORKER_TIMEOUT_S)
+    launch_s = time.monotonic() - t1
+    out = worker_result(res.returncode, res.stdout, res.stderr)
+    log(f"[schedule] end-to-end: Running after {syncs} cycle(s), "
+        f"{schedule_s:.3f} s; pod on {pod.node_name} with injected "
+        f"{sorted(injected)} (coordinator {host} -> 127.0.0.1); worker "
+        f"{launch_s:.3f} s to its line: {json.dumps(out)}")
+    if (out["process_id"], out["num_processes"], out["device_count"]) != \
+            (int(injected[bootstrap.ENV_WORKER_ID]),
+             int(injected[bootstrap.ENV_NUM_PROCESSES]), 1) or \
+            out["process_id"] != 0 or out["num_processes"] != 1 or \
+            not math.isfinite(out["loss"]):
+        raise AssertionError("the scheduled worker's line is off")
+    return dict(schedule_s=schedule_s, cycles=syncs, launch_s=launch_s,
+                injected=sorted(injected), result=out)
+
+
+def phase_schedule(bootstrap):
+    """The control plane's scheduling path on this machine: the card's
+    node verified by the node agent, a backlog scheduled on a simulated
+    SCHED_HOSTS-host GPU cluster beside it, and a vcjob scheduled onto
+    the card and launched as the port's worker on cuda."""
+    from volcano_tpu_torch.controllers import ControllerManager
+    from volcano_tpu_torch.scheduler import Scheduler
+    from volcano_tpu_torch.simulator import make_gpu_cluster
+    from volcano_tpu_torch.webhooks.admission import default_admission
+    node = local_node()
+    t0 = time.monotonic()
+    cluster = make_gpu_cluster(
+        [(f"hgx{i:04d}", "hgx-h100-8") for i in range(SCHED_HOSTS)],
+        ib_fabrics={f"hgx{i:04d}": f"su{i // SCHED_FABRIC_HOSTS:02d}"
+                    for i in range(SCHED_HOSTS)},
+        extra_nodes=[node])
+    build_s = time.monotonic() - t0
+    agent = agent_verdict(cluster, node)
+    cluster.admission = default_admission()
+    mgr = ControllerManager(cluster, enabled=["job", "queue"])
+    sched = Scheduler(cluster, schedule_period=0)
+    backlog = schedule_backlog(cluster, mgr, sched, node.name)
+    e2e = scheduled_worker(cluster, mgr, sched, node, bootstrap)
+    cycle_ms = [c["cycle_ms"] for c in backlog["cycles"]]
+    log(f"[schedule] {SCHED_HOSTS} hosts + this node built in "
+        f"{build_s:.3f} s; {len(cycle_ms)} cycles, scheduler ms "
+        f"{[round(x, 3) for x in cycle_ms]}, "
+        f"{backlog['cycles'][-1]['jobs_running']} jobs running, "
+        f"{backlog['cycles'][-1]['gpus_bound']:g} GPUs bound")
+    return dict(hosts=SCHED_HOSTS, gpus=SCHED_HOSTS * 8, build_s=build_s,
+                agent=agent, backlog=backlog, end_to_end=e2e)
+
+
 def main() -> int:
     # the port first: alone, without the repo, the script fails here
     # before it prints anything
@@ -1524,6 +1831,11 @@ def main() -> int:
     sp = phase_sp(model, train, tr)
     mo = phase_moe(model, train, moe, fa, flop_peak)
     pp = phase_pp(model, train, pipeline, fa, bootstrap, tr)
+    # the scheduling path launches no kernel in this process (its worker
+    # trains the tiny f32 config with flash off, in a process of its own)
+    zero_counts(fa)
+    sc = phase_schedule(bootstrap)
+    sc["kernel_launches"] = launch_counts(fa)
     common = {"shape": list(SLICE_SHAPE), "dtype": "bfloat16",
               "causal": True, "card": smi,
               # every case each kernel was held at against its plain version
@@ -1577,7 +1889,8 @@ def main() -> int:
         f"{mo['mfu_bf16_dense']:.4f}; [pp] step ms {pp['step_ms']:.3f}")
     log(json.dumps({"worker": {"card": smi, "phase_worker": wk,
                                "phase_sharded": rs, "phase_sp": sp,
-                               "phase_moe": mo, "phase_pp": pp}}))
+                               "phase_moe": mo, "phase_pp": pp,
+                               "phase_schedule": sc}}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,8 +7,9 @@ sequence over sp (Ulysses, the ring, the gathered path, and Ulysses at
 t 8192), against the one-card step from the same weights; the MoE
 flagship with its experts over fsdp (expert parallelism) and tp, and the
 flagship pipelined over pp (GPipe, flat and a stage per slice), against
-the one-card step from the same weights; and the flash kernels at the
-shapes beyond d in {128, 256} and t % 128 == 0.
+the one-card step from the same weights; the flash kernels at the
+shapes beyond d in {128, 256} and t % 128 == 0; and one pod a GPU
+scheduled by the port's own control plane and launched on nccl.
 
 Each test needs the GPUs it names and skips without them.  Imports no
 JAX, so it runs where only PyTorch is installed (4 GPUs for all of it):
@@ -171,6 +172,67 @@ def test_workers_over_nccl_match_one_process(slices):
     assert len({r["loss"] for r in results}) == 1
     ref = _one_process_loss(n, 3)
     print(json.dumps({"gpus": n, "slices": slices, "loss": results[0]["loss"],
+                      "one_process_loss": ref}))
+    assert abs(results[0]["loss"] - ref) <= PRINTED + SHARE * abs(ref)
+
+
+@pytest.mark.gpu
+def test_port_scheduled_pods_on_visible_gpus():
+    """The port's own control plane places one pod a visible GPU on this
+    host (a single-host NVLink domain of that many GPUs); each pod,
+    launched with the env the torch and svc job plugins injected and
+    its GPU as CUDA_VISIBLE_DEVICES (the device plugin's part), is a
+    rank of one nccl group, and the loss is one process's."""
+    _gpus(1)
+    from volcano_tpu_torch.api.devices.gpu.topology import DomainTopology
+    from volcano_tpu_torch.api.pod import Container, Pod
+    from volcano_tpu_torch.api.resource import GPU
+    from volcano_tpu_torch.api.types import JobPhase
+    from volcano_tpu_torch.api.vcjob import TaskSpec, VCJob
+    from volcano_tpu_torch.cache.fake_cluster import FakeCluster
+    from volcano_tpu_torch.controllers import ControllerManager
+    from volcano_tpu_torch.scheduler import Scheduler
+    from volcano_tpu_torch.simulator import domain_nodes
+    from volcano_tpu_torch.webhooks.admission import default_admission
+    n = torch.cuda.device_count()
+    product = torch.cuda.get_device_properties(0).name.replace(" ", "-")
+    cluster = FakeCluster(admission=default_admission())
+    for node in domain_nodes(DomainTopology("local", product, 1, n)):
+        cluster.add_node(node)
+    mgr = ControllerManager(cluster, enabled=["job", "queue"])
+    sched = Scheduler(cluster, schedule_period=0)
+    job = cluster.add_vcjob(VCJob(
+        name="gpus", min_available=n, plugins={"torch": [], "svc": []},
+        tasks=[TaskSpec(name="worker", replicas=n, template=Pod(
+            name="t", containers=[Container(requests={"cpu": 1,
+                                                      GPU: 1})]))]))
+    for _ in range(3):
+        mgr.sync_all()
+        sched.run_once()
+        cluster.tick()
+    assert cluster.vcjobs[job.key].phase is JobPhase.RUNNING
+    pods = sorted((p for p in cluster.pods.values() if p.owner == job.uid),
+                  key=lambda p: p.task_index)
+    assert [p.node_name for p in pods] == ["local-w0"] * n
+    port = free_port()
+    envs = []
+    for pod in pods:
+        env = _base_env(**pod.containers[0].env)
+        env.update(COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   CUDA_VISIBLE_DEVICES=str(pod.task_index))
+        envs.append(env)
+    results = []
+    for rc, out, err in _run(
+            [[sys.executable, "-m", "volcano_tpu_torch.workloads.worker"]] * n,
+            envs):
+        assert rc == 0, err[-3000:]
+        results.append(json.loads(out.strip().splitlines()[-1]))
+    assert [r["process_id"] for r in results] == list(range(n))
+    assert [r["collective_sum"] for r in results] == [float(n)] * n
+    assert [r["device_count"] for r in results] == [n] * n
+    assert len({r["loss"] for r in results}) == 1
+    ref = _one_process_loss(n, 3)
+    print(json.dumps({"scheduled_pods": n, "loss": results[0]["loss"],
                       "one_process_loss": ref}))
     assert abs(results[0]["loss"] - ref) <= PRINTED + SHARE * abs(ref)
 

@@ -77,3 +77,25 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "clean"
+
+
+def test_control_plane_loads_neither_torch_nor_jax():
+    """A scheduler host needs no CUDA: the port's control plane imports
+    no torch (nor jax, nor the reference)."""
+    code = ("import sys\n"
+            "import volcano_tpu_torch.scheduler\n"
+            "import volcano_tpu_torch.simulator\n"
+            "import volcano_tpu_torch.controllers.job.controller\n"
+            "import volcano_tpu_torch.agent.handlers\n"
+            "import volcano_tpu_torch.controllers\n"
+            "import volcano_tpu_torch.webhooks.admission\n"
+            f"roots = {FORBIDDEN + ('torch',)!r}\n"
+            "bad = [m for m in sys.modules if any(m == r or "
+            "m.startswith(r + '.') for r in roots)]\n"
+            "assert not bad, bad\n"
+            "print('clean')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "clean"

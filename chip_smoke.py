@@ -55,7 +55,18 @@ scheduled under the default conf onto 1024 simulated HGX H100 hosts in
 32 fabrics until a cycle binds nothing, with each cycle's wall time and
 the invariants of what is bound; and a vcjob with the torch and svc job
 plugins scheduled onto this node and launched as the port's worker on
-cuda with the env the plugins injected.
+cuda with the env the plugins injected; (15) `phase_wire`: the same
+fleet and backlog scheduled by the port's control plane as separate
+processes that meet only at the state server over HTTP (`python -m
+volcano_tpu_torch.server` over a durable data dir with a bearer token,
+`python -m volcano_tpu_torch --components controllers` and `...
+--components scheduler --leader-elect`), this script as kubectl and as
+the kubelet: the invariants read back from the server beside
+phase_schedule's counts, a vcjob bound over the wire and run on cuda,
+the server's GPU guard refusing an overcommitting bind and a stale pod
+write, and a kill -9 of the server with its recovery (every acked bind
+kept, the clients resynced, the job still Running), each with its host
+times and the WAL's fsyncs.
 
 The kernel phases (3)-(5) also hold and time the kernels at the shapes
 beyond d in {128, 256} and t % 128 == 0 (d = 384 and 512 on the
@@ -77,6 +88,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import socket
 import subprocess
 import sys
@@ -1639,7 +1651,6 @@ def schedule_backlog(cluster, mgr, sched, local_name):
     from volcano_tpu_torch.api.queue import Queue
     from volcano_tpu_torch.api.resource import GPU, Resource
     from volcano_tpu_torch.api.types import JobPhase
-    from volcano_tpu_torch.controllers.hypernode import IB_FABRIC_LABEL
     cluster.add_queue(Queue(name="research", weight=1))
     cluster.add_queue(Queue(name="prod", weight=2))
     jobs = [cluster.add_vcjob(j) for j in backlog_jobs()]
@@ -1673,52 +1684,148 @@ def schedule_backlog(cluster, mgr, sched, local_name):
     else:
         raise AssertionError(f"still binding after {SCHED_MAX_CYCLES} cycles")
 
+    counts = backlog_invariants("[schedule]", jobs, cluster.pods,
+                                cluster.nodes, local_name)
+    return dict(cycles=cycles, **counts)
+
+
+def backlog_invariants(tag, jobs, pods, nodes, local_name):
+    """What is bound keeps the backlog's invariants: no gang bound in
+    part, no hard-topology gang across IB fabrics, no single-host job
+    across hosts, no node over its nvidia.com/gpu allocatable, no
+    backlog pod on this machine's node, and some hard-topology gang
+    placed.  Returns the counts of what is bound."""
+    from volcano_tpu_torch.api.resource import GPU, Resource
+    from volcano_tpu_torch.controllers.hypernode import IB_FABRIC_LABEL
+    owned = {}
+    for p in pods.values():
+        owned.setdefault(p.owner, []).append(p)
     partial, spread, straddle = [], [], []
     for job in jobs:
-        pods = [p for p in cluster.pods.values() if p.owner == job.uid]
-        nodes = [p.node_name for p in pods if p.node_name]
-        if nodes and len(nodes) != job.min_available:
+        bound = [p.node_name for p in owned.get(job.uid, ()) if p.node_name]
+        if bound and len(bound) != job.min_available:
             partial.append(job.name)
-        if nodes and job.network_topology is not None and len({
-                cluster.nodes[n].labels.get(IB_FABRIC_LABEL)
-                for n in nodes}) != 1:
+        if bound and job.network_topology is not None and len({
+                nodes[n].labels.get(IB_FABRIC_LABEL) for n in bound}) != 1:
             spread.append(job.name)
-        if job.min_available == 1 and len(set(nodes)) > 1:
+        if job.min_available == 1 and len(set(bound)) > 1:
             straddle.append(job.name)
+    used = {}
+    for p in pods.values():
+        if p.node_name:
+            used[p.node_name] = used.get(p.node_name, 0.0) + \
+                p.resource_requests().get(GPU)
+    over = sorted(n for n, g in used.items() if g > Resource.
+                  from_resource_list(nodes[n].allocatable).get(GPU) + 1e-9)
     placed = {j.name for j in jobs if any(
-        p.node_name for p in cluster.pods.values() if p.owner == j.uid)}
+        p.node_name for p in owned.get(j.uid, ()))}
     hard = [j.name for j in jobs if j.network_topology is not None]
-    log(f"[schedule] {len(placed)} of {len(jobs)} jobs placed, "
+    backlog = [p for j in jobs for p in owned.get(j.uid, ()) if p.node_name]
+    log(f"{tag} {len(placed)} of {len(jobs)} jobs placed, "
         f"{len(set(hard) & placed)} of {len(hard)} hard-topology gangs; "
         f"partially bound gangs {partial}, hard gangs across fabrics "
-        f"{spread}, single-host jobs across hosts {straddle}")
-    if partial or spread or straddle or not set(hard) & placed:
+        f"{spread}, single-host jobs across hosts {straddle}, nodes over "
+        f"their GPUs {over}")
+    if partial or spread or straddle or over or not set(hard) & placed:
         raise AssertionError("the backlog's placement breaks an invariant")
-    if any(p.node_name == local_name for p in cluster.pods.values()):
+    if any(p.node_name == local_name for p in backlog):
         raise AssertionError("a backlog pod landed on this machine's node")
-    return dict(cycles=cycles, jobs=len(jobs), jobs_placed=len(placed),
-                hard_gangs=len(hard), hard_gangs_placed=len(set(hard) & placed))
+    return dict(jobs=len(jobs), jobs_placed=len(placed),
+                hard_gangs=len(hard), hard_gangs_placed=len(set(hard) & placed),
+                pods_bound=len(backlog),
+                gpus_bound=sum(p.resource_requests().get(GPU)
+                               for p in backlog))
 
 
-def scheduled_worker(cluster, mgr, sched, node, bootstrap):
+def e2e_job(node):
     """A one-pod vcjob with the torch and svc job plugins, pinned to this
-    machine's node by its hostname label, synced until Running; then its
-    pod launched as `python -m volcano_tpu_torch.workloads.worker` with
-    the env the plugins injected.  Only the coordinator's host (the svc
-    plugin's DNS name, rewritten to 127.0.0.1) and CUDA_VISIBLE_DEVICES
-    (as launch_worker sets it) are overridden: no WORKER_DEVICE, so it
-    runs on cuda."""
+    machine's node by its hostname label."""
     from volcano_tpu_torch.api.pod import Container, Pod, Toleration
     from volcano_tpu_torch.api.resource import GPU
-    from volcano_tpu_torch.api.types import JobPhase
     from volcano_tpu_torch.api.vcjob import TaskSpec, VCJob
-    t0 = time.monotonic()
-    job = cluster.add_vcjob(VCJob(
+    return VCJob(
         name="smoke", min_available=1, plugins={"torch": [], "svc": []},
         tasks=[TaskSpec(name="worker", replicas=1, template=Pod(
             name="t", node_selector={HOSTNAME_LABEL: node.name},
             tolerations=[Toleration(key=LOCAL_TAINT, operator="Exists")],
-            containers=[Container(requests={"cpu": 4, GPU: 1})]))]))
+            containers=[Container(requests={"cpu": 4, GPU: 1})]))])
+
+
+class PodWorker:
+    """A bound pod launched as `python -m volcano_tpu_torch.workloads.worker`
+    with the env the job plugins injected.  Only the coordinator's host
+    (the svc plugin's DNS name, rewritten to 127.0.0.1) and
+    CUDA_VISIBLE_DEVICES (as launch_worker sets it) are overridden: no
+    WORKER_DEVICE, so it runs on cuda.  Its output goes to files, so it
+    runs on while the caller does other work."""
+
+    def __init__(self, pod, node, bootstrap):
+        injected = dict(pod.containers[0].env)
+        contract = {bootstrap.ENV_WORKER_ID, bootstrap.ENV_HOSTNAMES,
+                    bootstrap.ENV_COORDINATOR, bootstrap.ENV_NUM_PROCESSES}
+        if pod.node_name != node.name or not contract <= set(injected):
+            raise AssertionError(f"the pod is on {pod.node_name!r} with env "
+                                 f"{sorted(injected)}")
+        self.pod, self.injected, self.bootstrap = pod, injected, bootstrap
+        self.host, _, port = \
+            injected[bootstrap.ENV_COORDINATOR].rpartition(":")
+        env = {k: v for k, v in os.environ.items()
+               if k not in contract and k not in (
+                   "WORKER_DEVICE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                   bootstrap.ENV_SLICE_ID, bootstrap.ENV_NUM_SLICES)}
+        env.update(injected)
+        env.update({bootstrap.ENV_COORDINATOR: f"127.0.0.1:{port}",
+                    "CUDA_VISIBLE_DEVICES": os.environ.get(
+                        "CUDA_VISIBLE_DEVICES", "0").split(",")[0],
+                    "PYTHONPATH": os.pathsep.join(
+                        p for p in (REPO, os.environ.get("PYTHONPATH"))
+                        if p)})
+        self.out = tempfile.TemporaryFile("w+")
+        self.err = tempfile.TemporaryFile("w+")
+        self.t1 = time.monotonic()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "volcano_tpu_torch.workloads.worker"],
+            env=env, cwd=REPO, stdout=self.out, stderr=self.err, text=True)
+
+    def result(self, tag):
+        """(injected names, wall s from launch to the worker's line, the
+        line), once the worker has exited."""
+        try:
+            self.proc.wait(timeout=max(
+                1.0, WORKER_TIMEOUT_S - (time.monotonic() - self.t1)))
+        except subprocess.TimeoutExpired:
+            self.kill()
+            raise AssertionError("the scheduled worker timed out")
+        launch_s = time.monotonic() - self.t1
+        self.out.seek(0)
+        self.err.seek(0)
+        out = worker_result(self.proc.returncode, self.out.read(),
+                            self.err.read())
+        injected = self.injected
+        log(f"{tag} pod on {self.pod.node_name} with injected "
+            f"{sorted(injected)} (coordinator {self.host} -> 127.0.0.1); "
+            f"worker {launch_s:.3f} s to its line: {json.dumps(out)}")
+        boot = self.bootstrap
+        if (out["process_id"], out["num_processes"], out["device_count"]) \
+                != (int(injected[boot.ENV_WORKER_ID]),
+                    int(injected[boot.ENV_NUM_PROCESSES]), 1) or \
+                out["process_id"] != 0 or out["num_processes"] != 1 or \
+                not math.isfinite(out["loss"]):
+            raise AssertionError("the scheduled worker's line is off")
+        return sorted(injected), launch_s, out
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+
+
+def scheduled_worker(cluster, mgr, sched, node, bootstrap):
+    """The end-to-end vcjob synced until Running, then its pod launched
+    as the port's worker on cuda."""
+    from volcano_tpu_torch.api.types import JobPhase
+    t0 = time.monotonic()
+    job = cluster.add_vcjob(e2e_job(node))
     syncs = 0
     while cluster.vcjobs[job.key].phase is not JobPhase.RUNNING:
         if syncs == 5:
@@ -1731,42 +1838,23 @@ def scheduled_worker(cluster, mgr, sched, node, bootstrap):
         syncs += 1
     schedule_s = time.monotonic() - t0
     (pod,) = [p for p in cluster.pods.values() if p.owner == job.uid]
-    injected = dict(pod.containers[0].env)
-    contract = {bootstrap.ENV_WORKER_ID, bootstrap.ENV_HOSTNAMES,
-                bootstrap.ENV_COORDINATOR, bootstrap.ENV_NUM_PROCESSES}
-    if pod.node_name != node.name or not contract <= set(injected):
-        raise AssertionError(f"the pod is on {pod.node_name!r} with env "
-                             f"{sorted(injected)}")
-    host, _, port = injected[bootstrap.ENV_COORDINATOR].rpartition(":")
-    env = {k: v for k, v in os.environ.items()
-           if k not in contract and k not in (
-               "WORKER_DEVICE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
-               bootstrap.ENV_SLICE_ID, bootstrap.ENV_NUM_SLICES)}
-    env.update(injected)
-    env.update({bootstrap.ENV_COORDINATOR: f"127.0.0.1:{port}",
-                "CUDA_VISIBLE_DEVICES": os.environ.get(
-                    "CUDA_VISIBLE_DEVICES", "0").split(",")[0],
-                "PYTHONPATH": os.pathsep.join(
-                    p for p in (REPO, os.environ.get("PYTHONPATH")) if p)})
-    t1 = time.monotonic()
-    res = subprocess.run(
-        [sys.executable, "-m", "volcano_tpu_torch.workloads.worker"],
-        env=env, cwd=REPO, capture_output=True, text=True,
-        timeout=WORKER_TIMEOUT_S)
-    launch_s = time.monotonic() - t1
-    out = worker_result(res.returncode, res.stdout, res.stderr)
     log(f"[schedule] end-to-end: Running after {syncs} cycle(s), "
-        f"{schedule_s:.3f} s; pod on {pod.node_name} with injected "
-        f"{sorted(injected)} (coordinator {host} -> 127.0.0.1); worker "
-        f"{launch_s:.3f} s to its line: {json.dumps(out)}")
-    if (out["process_id"], out["num_processes"], out["device_count"]) != \
-            (int(injected[bootstrap.ENV_WORKER_ID]),
-             int(injected[bootstrap.ENV_NUM_PROCESSES]), 1) or \
-            out["process_id"] != 0 or out["num_processes"] != 1 or \
-            not math.isfinite(out["loss"]):
-        raise AssertionError("the scheduled worker's line is off")
+        f"{schedule_s:.3f} s")
+    injected, launch_s, out = PodWorker(pod, node, bootstrap).result(
+        "[schedule] end-to-end:")
     return dict(schedule_s=schedule_s, cycles=syncs, launch_s=launch_s,
-                injected=sorted(injected), result=out)
+                injected=injected, result=out)
+
+
+def gpu_fleet(node):
+    """SCHED_HOSTS HGX H100 hosts in IB fabrics of SCHED_FABRIC_HOSTS,
+    beside this machine's node, with the hypernode tree discovered."""
+    from volcano_tpu_torch.simulator import make_gpu_cluster
+    return make_gpu_cluster(
+        [(f"hgx{i:04d}", "hgx-h100-8") for i in range(SCHED_HOSTS)],
+        ib_fabrics={f"hgx{i:04d}": f"su{i // SCHED_FABRIC_HOSTS:02d}"
+                    for i in range(SCHED_HOSTS)},
+        extra_nodes=[node])
 
 
 def phase_schedule(bootstrap):
@@ -1776,15 +1864,10 @@ def phase_schedule(bootstrap):
     the card and launched as the port's worker on cuda."""
     from volcano_tpu_torch.controllers import ControllerManager
     from volcano_tpu_torch.scheduler import Scheduler
-    from volcano_tpu_torch.simulator import make_gpu_cluster
     from volcano_tpu_torch.webhooks.admission import default_admission
     node = local_node()
     t0 = time.monotonic()
-    cluster = make_gpu_cluster(
-        [(f"hgx{i:04d}", "hgx-h100-8") for i in range(SCHED_HOSTS)],
-        ib_fabrics={f"hgx{i:04d}": f"su{i // SCHED_FABRIC_HOSTS:02d}"
-                    for i in range(SCHED_HOSTS)},
-        extra_nodes=[node])
+    cluster = gpu_fleet(node)
     build_s = time.monotonic() - t0
     agent = agent_verdict(cluster, node)
     cluster.admission = default_admission()
@@ -1800,6 +1883,500 @@ def phase_schedule(bootstrap):
         f"{backlog['cycles'][-1]['gpus_bound']:g} GPUs bound")
     return dict(hosts=SCHED_HOSTS, gpus=SCHED_HOSTS * 8, build_s=build_s,
                 agent=agent, backlog=backlog, end_to_end=e2e)
+
+
+# -- phase_wire: the control plane over the wire ------------------------
+
+WIRE_PERIOD_S = 0.2     # the controller and scheduler processes' period
+WIRE_POLL_S = 0.2       # kubectl's (and the kubelet's) polling period
+WIRE_BOOT_S = 120       # a server boot, seed or WAL replay included
+WIRE_TIMEOUT_S = 240    # each wait for the plane to converge
+WIRE_GRACE_S = 5.0      # SIGTERM grace before SIGKILL at teardown
+
+
+class WirePlane:
+    """The port's control plane as OS processes on this machine: the
+    state server over a durable data dir with a bearer token, and the
+    controller and scheduler processes that reach it only over HTTP,
+    each with its metrics on a port of its own."""
+
+    def __init__(self, workdir):
+        import secrets
+        self.workdir = workdir
+        self.data_dir = os.path.join(workdir, "state")
+        self.token = secrets.token_hex(16)
+        self.token_file = os.path.join(workdir, "token")
+        with open(self.token_file, "w") as f:
+            f.write(self.token)
+        self.port = free_port()
+        self.url = f"http://127.0.0.1:{self.port}"
+        self.procs, self.logs, self.metrics_port = {}, {}, {}
+
+    def spawn(self, name, *argv):
+        self.logs[name] = os.path.join(self.workdir, f"{name}.log")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+        with open(self.logs[name], "a") as f:
+            self.procs[name] = subprocess.Popen(
+                [sys.executable, *argv], stdout=f, stderr=subprocess.STDOUT,
+                env=env, cwd=REPO)
+
+    def start_server(self, seed=""):
+        argv = ["-m", "volcano_tpu_torch.server", "--port", str(self.port),
+                "--data-dir", self.data_dir, "--token-file", self.token_file]
+        if seed:
+            argv += ["--state", seed]
+        self.spawn("server", *argv)
+        self.until(self.healthy, WIRE_BOOT_S, "the state server's /healthz")
+
+    def start_client(self, name, *argv):
+        self.metrics_port[name] = free_port()
+        self.spawn(name, "-m", "volcano_tpu_torch", "--cluster-url", self.url,
+                   "--token-file", self.token_file, "--period",
+                   str(WIRE_PERIOD_S), "--metrics-port",
+                   str(self.metrics_port[name]), *argv)
+
+    def healthy(self):
+        import urllib.request
+        try:
+            with urllib.request.urlopen(self.url + "/healthz", timeout=2):
+                return True
+        except OSError:
+            return False
+
+    def check(self):
+        for name, proc in self.procs.items():
+            if proc.poll() is not None:
+                raise AssertionError(f"{name} exited {proc.returncode}:\n"
+                                     f"{self.tail(name)}")
+
+    def until(self, cond, timeout, what):
+        deadline = time.monotonic() + timeout
+        while True:
+            self.check()
+            if cond():
+                return
+            if time.monotonic() > deadline:
+                raise AssertionError(f"timed out after {timeout} s waiting "
+                                     f"for {what}\n" + "\n".join(
+                                         self.tail(n) for n in self.procs))
+            time.sleep(WIRE_POLL_S)
+
+    def request(self, method, path, body=None):
+        """(HTTP status, JSON body) of one call with the token."""
+        import urllib.error
+        import urllib.request
+        req = urllib.request.Request(
+            self.url + path, method=method,
+            data=None if body is None else json.dumps(body).encode(),
+            headers={"Authorization": f"Bearer {self.token}",
+                     "Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read() or b"{}")
+
+    def metrics(self, name):
+        """{series: value} of a process's /metrics; the server's is
+        open, the clients' are on their own ports."""
+        import urllib.request
+        url = self.url + "/metrics" if name == "server" else \
+            f"http://127.0.0.1:{self.metrics_port[name]}/metrics"
+        try:
+            with urllib.request.urlopen(url, timeout=5) as r:
+                text = r.read().decode()
+        except OSError:
+            return {}
+        out = {}
+        for line in text.splitlines():
+            if line and not line.startswith("#"):
+                series, _, value = line.rpartition(" ")
+                out[series] = float(value)
+        return out
+
+    def kill9(self, name):
+        proc = self.procs.pop(name)
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=30)
+
+    def tail(self, name):
+        with open(self.logs[name], errors="replace") as f:
+            return f"---- {name} ----\n{f.read()[-3000:]}"
+
+    def stop(self):
+        """Clients before the server, SIGTERM then SIGKILL after the
+        grace; every process reaped."""
+        for name in reversed(list(self.procs)):
+            proc = self.procs.pop(name)
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+                try:
+                    proc.wait(timeout=WIRE_GRACE_S)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait(timeout=30)
+
+
+def series(metrics, name, **labels):
+    """The sum of a family's series whose labels include `labels`."""
+    total = 0.0
+    for key, value in metrics.items():
+        fam, _, rest = key.partition("{")
+        if fam == name and all(f'{k}="{v}"' in rest
+                               for k, v in labels.items()):
+            total += value
+    return total
+
+
+def wire_read(plane):
+    """The server's truth, decoded: (rv, epoch, pods, nodes, vcjobs)."""
+    from volcano_tpu_torch.api import codec
+    code, snap = plane.request("GET", "/snapshot")
+    if code != 200:
+        raise AssertionError(f"GET /snapshot: {code} {snap}")
+    stores = snap["stores"]
+
+    def decode(kind):
+        return {k: codec.decode(v) for k, v in stores.get(kind, {}).items()}
+    return (snap["rv"], snap.get("epoch", ""), decode("pod"), decode("node"),
+            decode("vcjob"))
+
+
+def gpus_on(pods, node):
+    from volcano_tpu_torch.api.resource import GPU
+    from volcano_tpu_torch.api.types import TaskStatus
+    return sum(p.resource_requests().get(GPU) for p in pods.values()
+               if p.node_name == node and p.phase in (
+                   TaskStatus.BOUND, TaskStatus.RUNNING))
+
+
+def wire_backlog(plane, kubectl, node, smi):
+    """The backlog submitted through kubectl with admission server-side;
+    the scheduler process started once the controllers have created
+    every pod; the kubelet's ticks until two scheduler cycles in a row
+    bind nothing; the invariants read back from the server."""
+    jobs, t0 = [], time.monotonic()
+    for job in backlog_jobs():
+        jobs.append(kubectl.add_vcjob(job))
+    submit_s = time.monotonic() - t0
+    uids, want = {j.uid for j in jobs}, sum(j.total_replicas() for j in jobs)
+    plane.until(lambda: sum(1 for p in kubectl.pods.values()
+                            if p.owner in uids) == want,
+                WIRE_TIMEOUT_S, f"the controllers' {want} pods")
+    pods_s = time.monotonic() - t0
+    log(f"[wire] {len(jobs)} vcjobs submitted over the wire in "
+        f"{submit_s:.3f} s; the controller process created their {want} "
+        f"pods {pods_s:.3f} s after the first submit ({smi}; host times)")
+    # the audit trail (on from its first read) stamps each bind as the
+    # server applies it
+    audit0 = plane.request("GET", "/audit")[1]["idx"]
+    plane.start_client("scheduler", "--components", "scheduler",
+                       "--leader-elect", "--holder", "s1")
+    t0 = time.monotonic()
+    last, changed_at_cycle, first_bind, last_bind = 0, 0, None, None
+    while True:
+        plane.check()
+        kubectl.tick()                  # the kubelet: Bound -> Running
+        cycles = series(plane.metrics("scheduler"),
+                        "e2e_scheduling_latency_seconds_count")
+        bound = sum(1 for p in kubectl.pods.values()
+                    if p.owner in uids and p.node_name)
+        now = time.monotonic()
+        if bound != last:
+            last, changed_at_cycle = bound, cycles
+            first_bind = first_bind or now
+            last_bind = now
+        if bound and cycles >= changed_at_cycle + 2:
+            break
+        if now - t0 > WIRE_TIMEOUT_S:
+            raise AssertionError(f"still binding after {WIRE_TIMEOUT_S} s")
+        time.sleep(WIRE_POLL_S)
+    sched = plane.metrics("scheduler")
+    cycles = series(sched, "e2e_scheduling_latency_seconds_count")
+    cycle_s = series(sched, "e2e_scheduling_latency_seconds_sum")
+    rv, _, pods, nodes, vcjobs = wire_read(plane)
+    counts = backlog_invariants("[wire]", [vcjobs[j.key] for j in jobs],
+                                pods, nodes, node.name)
+    stamps = bind_stamps(plane, audit0, {k for k, p in pods.items()
+                                         if p.owner in uids})
+    span = max(stamps) - min(stamps)
+    binds_per_s = len(stamps) / span if span > 0 else float("inf")
+    log(f"[wire] the scheduler process bound {counts['pods_bound']} pods "
+        f"of {counts['jobs_placed']} jobs, {counts['gpus_bound']:g} GPUs: "
+        f"kubectl saw the first bind {first_bind - t0:.3f} s and the last "
+        f"{last_bind - t0:.3f} s after its start; the server applied "
+        f"{len(stamps)} binds in {1e3 * span:.3f} ms (first to last audit "
+        f"stamp, {binds_per_s:.1f} binds/s); {cycles:g} cycles, "
+        f"{1e3 * cycle_s / max(cycles, 1):.3f} ms mean cycle wall; server "
+        f"rv {rv} ({smi}; host times)")
+    if len(stamps) != counts["pods_bound"]:
+        raise AssertionError(f"{len(stamps)} binds audited for "
+                             f"{counts['pods_bound']} bound pods")
+    return dict(submit_s=submit_s, pods_created_s=pods_s,
+                first_bind_s=first_bind - t0, last_bind_s=last_bind - t0,
+                bind_span_ms=1e3 * span, binds_per_s=binds_per_s,
+                cycles=cycles,
+                mean_cycle_ms=1e3 * cycle_s / max(cycles, 1), **counts)
+
+
+def bind_stamps(plane, since, keys):
+    """The audit stamp of each pod's first write with a node, from the
+    audit index `since` on."""
+    stamps = {}
+    while True:
+        doc = plane.request("GET", f"/audit?since={since}")[1]
+        if doc["lost"]:
+            raise AssertionError("the audit ring dropped records")
+        for rec in doc["records"]:
+            if rec["kind"] == "pod" and rec.get("node") and \
+                    rec["key"] in keys and rec["key"] not in stamps:
+                stamps[rec["key"]] = rec["ts"]
+        if doc["idx"] == since:
+            return list(stamps.values())
+        since = doc["idx"]
+
+
+def wire_end_to_end(plane, kubectl, node, bootstrap, smi):
+    """The end-to-end vcjob submitted through kubectl and bound by the
+    scheduler process; this script as the kubelet reads the bound pod
+    over the wire, posts it Running and launches its worker on cuda,
+    which runs on while the guard and the crash are checked."""
+    from volcano_tpu_torch.api.types import JobPhase, TaskStatus
+    t0 = time.monotonic()
+    job = kubectl.add_vcjob(e2e_job(node))
+
+    def bound():
+        return [p for p in kubectl.pods.values()
+                if p.owner == job.uid and p.node_name]
+    plane.until(bound, WIRE_TIMEOUT_S, "the end-to-end pod's bind")
+    bound_s = time.monotonic() - t0
+    (pod,) = bound()
+    pod.phase = TaskStatus.RUNNING      # the kubelet started the container
+    kubectl.put_object("pod", pod)
+    running_s = time.monotonic() - t0
+    worker = PodWorker(pod, node, bootstrap)
+    plane.until(lambda: kubectl.vcjobs[job.key].phase is JobPhase.RUNNING,
+                WIRE_TIMEOUT_S, "the end-to-end job's Running phase")
+    job_running_s = time.monotonic() - t0
+    log(f"[wire] end-to-end: submit -> bound {bound_s:.3f} s, -> Running "
+        f"posted {running_s:.3f} s, -> the job Running {job_running_s:.3f} "
+        f"s ({smi}; host times)")
+    return dict(job=job, pod=pod, worker=worker, bound_s=bound_s,
+                running_s=running_s, job_running_s=job_running_s)
+
+
+def wire_guard(plane, kubectl, node, own, smi):
+    """The server's GPU guard on this machine's node, filled by the
+    end-to-end pod (and a filler pod where the node has more GPUs than
+    that pod takes): one more 1-GPU pod's /bind and a stale Running
+    1-GPU pod's PUT are refused with 409; the end-to-end pod's own
+    booking rewritten is accepted; the node's bound GPUs unchanged."""
+    from volcano_tpu_torch.api import codec
+    from volcano_tpu_torch.api.pod import Toleration, make_pod
+    from volcano_tpu_torch.api.resource import GPU, Resource
+    from volcano_tpu_torch.api.types import TaskStatus
+
+    def pod(name, gpus, **kw):
+        return make_pod(name, requests={"cpu": 1, GPU: gpus},
+                        tolerations=[Toleration(key=LOCAL_TAINT,
+                                                operator="Exists")], **kw)
+
+    def put(obj, key=None):
+        return plane.request("POST", "/objects/pod",
+                             {"obj": codec.encode(obj), "key": key})[0]
+    _, _, pods, nodes, _ = wire_read(plane)
+    cap = Resource.from_resource_list(nodes[node.name].allocatable).get(GPU)
+    free = cap - gpus_on(pods, node.name)
+    if free > 0:
+        if put(pod("smoke-filler", free)) != 200 or plane.request(
+                "POST", "/bind", {"namespace": "default",
+                                  "name": "smoke-filler",
+                                  "node_name": node.name})[0] != 200:
+            raise AssertionError("the filler pod's bind was refused")
+    before = gpus_on(wire_read(plane)[2], node.name)
+    if put(pod("smoke-extra", 1)) != 200:
+        raise AssertionError("the extra pod's create was refused")
+    bind, body = plane.request("POST", "/bind", {
+        "namespace": "default", "name": "smoke-extra",
+        "node_name": node.name})
+    stale = put(pod("smoke-stale", 1, node_name=node.name,
+                    phase=TaskStatus.RUNNING))
+    own.phase = TaskStatus.RUNNING
+    mine = put(own, own.key)
+    after = gpus_on(wire_read(plane)[2], node.name)
+    kubectl.delete_pod("default/smoke-extra")
+    out = dict(node_gpus=cap, bound_gpus=before, bind_code=bind,
+               stale_put_code=stale, own_put_code=mine, gpus_after=after)
+    log(f"[wire] GPU guard on {node.name} ({cap:g} GPUs, {before:g} bound): "
+        f"/bind of one more 1-GPU pod -> {bind} ({body.get('error')}); PUT "
+        f"of a stale Running 1-GPU pod -> {stale}; the bound pod's own "
+        f"booking rewritten -> {mine}; {after:g} GPUs bound after ({smi})")
+    if (bind, stale, mine) != (409, 409, 200) or after != before or \
+            before != cap:
+        raise AssertionError(f"the GPU guard: {out}")
+    return out
+
+
+def wal_files(data_dir):
+    return sorted((n, os.path.getsize(os.path.join(data_dir, n)))
+                  for n in os.listdir(data_dir)
+                  if n.startswith("wal-") and n.endswith(".log"))
+
+
+def wire_crash(plane, kubectl, node, e2e, smi):
+    """kill -9 of the server once every bind is acked, a boot on the same
+    data dir, and the plane's recovery: every bound pod still bound, the
+    resource version monotonic, the lease kept, both client processes
+    resynced without a restart (their mirrors' resync counters move and
+    a new job goes through them), the end-to-end job still Running."""
+    from volcano_tpu_torch.api.pod import Container, Pod, Toleration
+    from volcano_tpu_torch.api.queue import Queue
+    from volcano_tpu_torch.api.types import JobPhase, TaskStatus
+    from volcano_tpu_torch.api.vcjob import TaskSpec, VCJob
+    rv0, epoch0, pods0, _, _ = wire_read(plane)
+    bound0 = {k: p.node_name for k, p in pods0.items() if p.node_name}
+    server = plane.metrics("server")
+    fsyncs = series(server, "server_wal_fsync_seconds_count")
+    fsync_s = series(server, "server_wal_fsync_seconds_sum")
+    dur0 = plane.request("GET", "/durability")[1]
+    files = wal_files(plane.data_dir)
+    resyncs0 = {n: series(plane.metrics(n), "mirror_resync_total")
+                for n in ("controllers", "scheduler")}
+    t0 = time.monotonic()
+    plane.kill9("server")
+    plane.start_server()
+    rto_s = time.monotonic() - t0
+    dur = plane.request("GET", "/durability")[1]
+    rv1, epoch1, pods1, _, vcjobs1 = wire_read(plane)
+    lost = sorted(k for k, n in bound0.items()
+                  if k not in pods1 or pods1[k].node_name != n)
+    base0, boot0 = epoch0.rsplit(".", 1)
+    base1, boot1 = epoch1.rsplit(".", 1)
+    lease = plane.request("GET", "/leases")[1].get("scheduler", {})
+    log(f"[wire] kill -9 of the server after {len(bound0)} acked binds "
+        f"(rv {rv0}; {fsyncs:g} WAL fsyncs, {1e3 * fsync_s:.3f} ms in "
+        f"all, {1e3 * fsync_s / max(fsyncs, 1):.3f} ms each; WAL "
+        f"{dur0.get('wal_records')} records, {dur0.get('wal_bytes')} bytes "
+        f"in {len(files)} segment(s) {[f for f, _ in files]}): /healthz "
+        f"again after {rto_s:.3f} s (the RTO), {dur.get('replay_records')} "
+        f"WAL records replayed in {dur.get('replay_seconds')} s; rv {rv1}, "
+        f"epoch {epoch0} -> {epoch1}; {len(lost)} bound pod(s) lost; lease "
+        f"held by {lease.get('holder')} ({smi}; host times)")
+    if lost or rv1 < rv0 or base1 != base0 or int(boot1) != int(boot0) + 1 \
+            or lease.get("holder") != "s1":
+        raise AssertionError("the restart lost acked state")
+    plane.until(lambda: all(series(plane.metrics(n), "mirror_resync_total")
+                            > resyncs0[n] for n in resyncs0),
+                WIRE_TIMEOUT_S, "the client processes' resync")
+    modes = {n: {m: series(plane.metrics(n), "mirror_resync_total", mode=m)
+                 for m in ("delta", "full")} for n in resyncs0}
+    t1 = time.monotonic()
+    # a queue of its own: the default queue's share is the end-to-end
+    # job's, which it holds (proportion's overused check)
+    kubectl.add_queue(Queue(name="after-restart", weight=1))
+    probe = kubectl.add_vcjob(VCJob(
+        name="after-restart", min_available=1, queue="after-restart",
+        tasks=[TaskSpec(
+            name="worker", replicas=1, template=Pod(
+                name="t", node_selector={HOSTNAME_LABEL: node.name},
+                tolerations=[Toleration(key=LOCAL_TAINT,
+                                        operator="Exists")],
+                containers=[Container(requests={"cpu": "100m"})]))]))
+    plane.until(lambda: any(p.owner == probe.uid and p.node_name
+                            for p in kubectl.pods.values()),
+                WIRE_TIMEOUT_S, "a job after the restart bound")
+    probe_s = time.monotonic() - t1
+    _, _, pods2, _, vcjobs2 = wire_read(plane)
+    e2e_pod = pods2.get(e2e["pod"].key)
+    running = vcjobs2[e2e["job"].key].phase is JobPhase.RUNNING and \
+        e2e_pod is not None and e2e_pod.phase is TaskStatus.RUNNING
+    log(f"[wire] after the restart: the clients resynced without a restart "
+        f"(mirror resyncs by mode {modes}); a new job created and bound "
+        f"through them in {probe_s:.3f} s; the end-to-end job "
+        f"{vcjobs2[e2e['job'].key].phase.value}, its pod "
+        f"{e2e_pod.phase.value if e2e_pod else None}")
+    if not running:
+        raise AssertionError("the end-to-end job is no longer Running")
+    return dict(acked_binds=len(bound0), rv_before=rv0, rv_after=rv1,
+                epoch_before=epoch0, epoch_after=epoch1, rto_s=rto_s,
+                wal_fsyncs=fsyncs, wal_fsync_s=fsync_s,
+                wal_records=dur0.get("wal_records"),
+                wal_bytes=dur0.get("wal_bytes"), wal_segments=len(files),
+                replay_records=dur.get("replay_records"),
+                replay_seconds=dur.get("replay_seconds"),
+                resyncs=modes, after_restart_bound_s=probe_s)
+
+
+def phase_wire(bootstrap, smi, sched):
+    """The port's control plane as separate processes that meet only at
+    the state server: the same fleet and backlog as phase_schedule
+    scheduled over HTTP, a vcjob run on this card, the server's GPU
+    guard, and a kill -9 of the server with the plane's recovery."""
+    import pickle
+    from volcano_tpu_torch.api.queue import Queue
+    from volcano_tpu_torch.cache.remote_cluster import RemoteCluster
+    node = local_node()
+    workdir = tempfile.mkdtemp(prefix="vtp-wire-")
+    plane, kubectl, e2e = WirePlane(workdir), None, None
+    try:
+        t0 = time.monotonic()
+        fleet = gpu_fleet(node)
+        for name, weight in (("research", 1), ("prod", 2)):
+            fleet.add_queue(Queue(name=name, weight=weight))
+        seed = os.path.join(workdir, "seed.pkl")
+        with open(seed, "wb") as f:
+            pickle.dump(fleet, f)
+        seed_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        plane.start_server(seed)
+        boot_s = time.monotonic() - t0
+        kubectl = RemoteCluster(plane.url, token=plane.token)
+        if len(kubectl.nodes) != SCHED_HOSTS + 1:
+            raise AssertionError(f"the server holds {len(kubectl.nodes)} "
+                                 "nodes")
+        log(f"[wire] {SCHED_HOSTS} hosts + this node seeded in {seed_s:.3f} "
+            f"s; the state server up over {plane.data_dir} in {boot_s:.3f} "
+            f"s ({smi}; host times)")
+        plane.start_client("controllers", "--components", "controllers",
+                           "--controllers", "job,queue")
+        backlog = wire_backlog(plane, kubectl, node, smi)
+        local = sched["backlog"]
+        same = all(backlog[k] == local[k] for k in (
+            "pods_bound", "jobs_placed", "gpus_bound", "hard_gangs_placed"))
+        log(f"[wire] bound over the wire: {backlog['pods_bound']} pods, "
+            f"{backlog['jobs_placed']} jobs, {backlog['gpus_bound']:g} GPUs, "
+            f"{backlog['hard_gangs_placed']} hard gangs; phase_schedule in "
+            f"process: {local['pods_bound']} pods, {local['jobs_placed']} "
+            f"jobs, {local['gpus_bound']:g} GPUs, "
+            f"{local['hard_gangs_placed']} hard gangs")
+        log("[wire] the same counts as phase_schedule" if same else
+            "[wire] the counts differ from phase_schedule's: over the wire "
+            "the controller process mints the pods' uids (phase_schedule "
+            "minted them in this process), and the scheduler breaks ties "
+            "between equal jobs and nodes by uid, so an equally valid "
+            "packing can follow; both kept every invariant")
+        e2e = wire_end_to_end(plane, kubectl, node, bootstrap, smi)
+        guard = wire_guard(plane, kubectl, node, e2e["pod"], smi)
+        crash = wire_crash(plane, kubectl, node, e2e, smi)
+        e2e["injected"], e2e["launch_s"], e2e["result"] = \
+            e2e["worker"].result("[wire] end-to-end:")
+    finally:
+        if e2e is not None:
+            e2e["worker"].kill()
+        if kubectl is not None:
+            kubectl.close()
+        plane.stop()
+    shutil.rmtree(workdir, ignore_errors=True)
+    log(f"[wire] end-to-end: launch -> the worker's line "
+        f"{e2e['launch_s']:.3f} s, beside the guard and crash checks "
+        f"({smi}; host times)")
+    for k in ("job", "pod", "worker"):
+        e2e.pop(k)
+    return dict(processes=["server", "controllers", "scheduler"],
+                seed_s=seed_s, boot_s=boot_s, backlog=backlog,
+                same_counts_as_phase_schedule=same, end_to_end=e2e,
+                guard=guard, crash=crash)
 
 
 def main() -> int:
@@ -1835,6 +2412,7 @@ def main() -> int:
     # trains the tiny f32 config with flash off, in a process of its own)
     zero_counts(fa)
     sc = phase_schedule(bootstrap)
+    sc["wire"] = phase_wire(bootstrap, smi, sc)
     sc["kernel_launches"] = launch_counts(fa)
     common = {"shape": list(SLICE_SHAPE), "dtype": "bfloat16",
               "causal": True, "card": smi,

@@ -53,6 +53,11 @@ controllers.job.plugins.util
 webhooks.__init__ webhooks.admission
 agent.__init__ agent.agent agent.framework agent.collect agent.handlers
 agent.enforcer
+api.jobflow api.numatopology controllers.hyperjob api.codec faults
+server.tlsutil server.httputil server.durability server.replication
+server.state_server server.__init__ server.audit_exporter
+webhooks.server server.__main__ cache.remote_cluster cache.partitioned
+leaderelection dumper agentscheduler __main__
 """.split()
 
 # the port's own modules, counterparts of reference modules of other names
@@ -104,7 +109,8 @@ GPU_LAYER = {
     "plugins.deviceshare": "deviceshare.gpu.weight",
     "plugins.binpack": "nvidia.com/gpu weighted in place of TPU chips",
     "plugins.topology": "domain fractions counted in nvidia.com/gpu",
-    "controllers.__init__": "registers only the slice's controllers",
+    "controllers.__init__": "registers only the ported controllers "
+                            "(hyperjob among them, for the codec)",
     "controllers.hypernode": "nvlink-domain and ib-fabric tiers from the "
                              "clique and fabric labels and from "
                              "nvlink/ib fabric records",
@@ -120,6 +126,18 @@ GPU_LAYER = {
     "agent.collect": "GpuChipCollector (/dev/nvidia[0-9]*) registered as "
                      "gpu in place of TpuChipCollector",
     "agent.handlers": "GpuHealthHandler in place of TpuHealthHandler",
+    "api.numatopology": "nvidia.com/gpu per NUMA cell; "
+                        "gpu_host_numatopology (HGX: 2 cells of 4 GPUs) "
+                        "in place of tpu_host_numatopology",
+    "controllers.hyperjob": "splits count nvidia.com/gpu; members are "
+                            "forwarded to IB fabrics by the ib-fabric "
+                            "label in place of the DCN-pod label",
+    "server.state_server": "the bind/put overcommit guard counts "
+                           "nvidia.com/gpu in place of google.com/tpu; "
+                           "no change number in a comment",
+    "agentscheduler": "the fast path's device filter and score read the "
+                      "gpu device in place of tpu",
+    "__main__": "--usage-source names the gpu collector",
 }
 
 
@@ -129,6 +147,10 @@ WORDING = {
     "actions.procpool": "docstring: no change number for the thread "
                         "backend",
     "actions.sweep": "docstring: no change number for the thread pilot",
+    "cache.partitioned": "docstring: no change number for replication",
+    "faults": "docstring: no change number for the WAL",
+    "server.replication": "docstring: no change numbers for the WAL and "
+                          "the chaos engine",
 }
 
 
@@ -232,7 +254,7 @@ def test_registries_are_the_port_own():
     assert tjp.job_plugin_exists("torch") and not tjp.job_plugin_exists("jax")
     assert rjp.job_plugin_exists("jax") and not rjp.job_plugin_exists("torch")
     assert set(TCONTROLLERS) == {"job", "queue", "podgroup", "hypernode",
-                                 "sharding", "cronjob"}
+                                 "sharding", "cronjob", "hyperjob"}
     assert set(TCONTROLLERS) < set(RCONTROLLERS)
     assert tplugins.ACTIONS is not rplugins.ACTIONS
     tplugins.get_action("enqueue")   # loads the port's registrations

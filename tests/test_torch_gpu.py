@@ -9,7 +9,8 @@ flagship with its experts over fsdp (expert parallelism) and tp, and the
 flagship pipelined over pp (GPipe, flat and a stage per slice), against
 the one-card step from the same weights; the flash kernels at the
 shapes beyond d in {128, 256} and t % 128 == 0; and one pod a GPU
-scheduled by the port's own control plane and launched on nccl.
+scheduled by the port's own control plane, in process and as three
+processes over the wire, and launched on nccl.
 
 Each test needs the GPUs it names and skips without them.  Imports no
 JAX, so it runs where only PyTorch is installed (4 GPUs for all of it):
@@ -234,6 +235,74 @@ def test_port_scheduled_pods_on_visible_gpus():
     ref = _one_process_loss(n, 3)
     print(json.dumps({"scheduled_pods": n, "loss": results[0]["loss"],
                       "one_process_loss": ref}))
+    assert abs(results[0]["loss"] - ref) <= PRINTED + SHARE * abs(ref)
+
+
+@pytest.mark.gpu
+def test_port_scheduled_pods_over_the_wire_on_visible_gpus(tmp_path):
+    """As above, but the port's control plane runs as three processes
+    that meet only at the state server (`python -m
+    volcano_tpu_torch.server`, `--components controllers`,
+    `--components scheduler`); this test is kubectl over the wire and
+    the kubelet that launches each bound pod and posts it Running."""
+    _gpus(1)
+    from test_torch_multiprocess import Plane, wait_for
+    from volcano_tpu_torch.api.devices.gpu.topology import DomainTopology
+    from volcano_tpu_torch.api.pod import Container, Pod
+    from volcano_tpu_torch.api.resource import GPU
+    from volcano_tpu_torch.api.types import TaskStatus
+    from volcano_tpu_torch.api.vcjob import TaskSpec, VCJob
+    from volcano_tpu_torch.cache.remote_cluster import RemoteCluster
+    from volcano_tpu_torch.simulator import domain_nodes
+    n = torch.cuda.device_count()
+    product = torch.cuda.get_device_properties(0).name.replace(" ", "-")
+    plane = Plane(tmp_path)
+    kubectl = None
+    try:
+        plane.spawn("server", "-m", "volcano_tpu_torch.server",
+                    "--port", str(plane.port))
+        wait_for(plane._up, 30, "server /healthz")
+        kubectl = RemoteCluster(plane.url)
+        for node in domain_nodes(DomainTopology("local", product, 1, n)):
+            kubectl.add_node(node)
+        plane.start("controllers", "controllers")
+        plane.start("scheduler", "scheduler")
+        job = kubectl.add_vcjob(VCJob(
+            name="gpus", min_available=n, plugins={"torch": [], "svc": []},
+            tasks=[TaskSpec(name="worker", replicas=n, template=Pod(
+                name="t", containers=[Container(requests={"cpu": 1,
+                                                          GPU: 1})]))]))
+
+        def bound():
+            return [p for p in kubectl.pods.values()
+                    if p.owner == job.uid and p.node_name]
+        wait_for(lambda: len(bound()) == n, 60, "the pods bound")
+        pods = sorted(bound(), key=lambda p: p.task_index)
+        assert [p.node_name for p in pods] == ["local-w0"] * n
+        port = free_port()
+        envs = []
+        for pod in pods:
+            env = _base_env(**pod.containers[0].env)
+            env.update(COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                       CUDA_VISIBLE_DEVICES=str(pod.task_index))
+            envs.append(env)
+            pod.phase = TaskStatus.RUNNING
+            kubectl.put_object("pod", pod)
+        results = []
+        for rc, out, err in _run(
+                [[sys.executable, "-m",
+                  "volcano_tpu_torch.workloads.worker"]] * n, envs):
+            assert rc == 0, err[-3000:]
+            results.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        if kubectl is not None:
+            kubectl.close()
+        plane.shutdown()
+    assert [r["process_id"] for r in results] == list(range(n))
+    assert len({r["loss"] for r in results}) == 1
+    ref = _one_process_loss(n, 3)
+    print(json.dumps({"scheduled_pods_over_the_wire": n,
+                      "loss": results[0]["loss"], "one_process_loss": ref}))
     assert abs(results[0]["loss"] - ref) <= PRINTED + SHARE * abs(ref)
 
 

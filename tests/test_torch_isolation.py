@@ -89,6 +89,9 @@ def test_control_plane_loads_neither_torch_nor_jax():
             "import volcano_tpu_torch.agent.handlers\n"
             "import volcano_tpu_torch.controllers\n"
             "import volcano_tpu_torch.webhooks.admission\n"
+            "import volcano_tpu_torch.server\n"
+            "import volcano_tpu_torch.cache.remote_cluster\n"
+            "import volcano_tpu_torch.__main__\n"
             f"roots = {FORBIDDEN + ('torch',)!r}\n"
             "bad = [m for m in sys.modules if any(m == r or "
             "m.startswith(r + '.') for r in roots)]\n"

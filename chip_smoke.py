@@ -66,7 +66,24 @@ phase_schedule's counts, a vcjob bound over the wire and run on cuda,
 the server's GPU guard refusing an overcommitting bind and a stale pod
 write, and a kill -9 of the server with its recovery (every acked bind
 kept, the clients resynced, the job still Running), each with its host
-times and the WAL's fsyncs.
+times and the WAL's fsyncs; (16) `phase_preempt`: phase_schedule's
+settled fleet under the default conf with gangpreempt, preempt and
+reclaim before backfill -- a spot layer of research jobs that run with
+one pod of eight fills three research-only fabrics whose jobs finished
+(the backlog runs at its gang floor, which preemption never breaks),
+then a PriorityClass above both, a prod gang of 32 whole hosts held to
+one IB fabric and 8 8-GPU single-host jobs in research, then prod's
+weight raised from 2 to 3 and 8 such jobs in prod -- with evictions and
+GPUs taken back by action, each cycle's ms by action, each
+preemptor's submit-to-bound s and the invariants read after every
+cycle; (17) `phase_failover`: a vcjob on this card trains the worker's
+tiny f32 model on cuda and checkpoints every 2 steps, the node agent
+reports the card's host Failed over its K ticks, the failover
+controller drains the job with one restart, quarantines the NVLink
+domain and stamps the last checkpoint step, and once the host is
+healthy and the quarantine lifted the job rebinds to the card, where
+the port's worker resumes at the stamped step; its loss is held
+against the uninterrupted run's (1e-4 relative).
 
 The kernel phases (3)-(5) also hold and time the kernels at the shapes
 beyond d in {128, 256} and t % 128 == 0 (d = 384 and 512 on the
@@ -1753,13 +1770,15 @@ def e2e_job(node):
 
 class PodWorker:
     """A bound pod launched as `python -m volcano_tpu_torch.workloads.worker`
-    with the env the job plugins injected.  Only the coordinator's host
-    (the svc plugin's DNS name, rewritten to 127.0.0.1) and
-    CUDA_VISIBLE_DEVICES (as launch_worker sets it) are overridden: no
-    WORKER_DEVICE, so it runs on cuda.  Its output goes to files, so it
-    runs on while the caller does other work."""
+    (or as `python <argv>`, with `extra` env) with the env the job plugins
+    injected.  Only the coordinator's host (the svc plugin's DNS name,
+    rewritten to 127.0.0.1) and CUDA_VISIBLE_DEVICES (as launch_worker
+    sets it) are overridden: no WORKER_DEVICE, so it runs on cuda.  Its
+    output goes to files, so it runs on while the caller does other
+    work."""
 
-    def __init__(self, pod, node, bootstrap):
+    def __init__(self, pod, node, bootstrap,
+                 argv=("-m", "volcano_tpu_torch.workloads.worker"), **extra):
         injected = dict(pod.containers[0].env)
         contract = {bootstrap.ENV_WORKER_ID, bootstrap.ENV_HOSTNAMES,
                     bootstrap.ENV_COORDINATOR, bootstrap.ENV_NUM_PROCESSES}
@@ -1780,16 +1799,17 @@ class PodWorker:
                     "PYTHONPATH": os.pathsep.join(
                         p for p in (REPO, os.environ.get("PYTHONPATH"))
                         if p)})
+        env.update({k: str(v) for k, v in extra.items()})
         self.out = tempfile.TemporaryFile("w+")
         self.err = tempfile.TemporaryFile("w+")
         self.t1 = time.monotonic()
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "volcano_tpu_torch.workloads.worker"],
-            env=env, cwd=REPO, stdout=self.out, stderr=self.err, text=True)
+            [sys.executable, *argv], env=env, cwd=REPO, stdout=self.out,
+            stderr=self.err, text=True)
 
-    def result(self, tag):
-        """(injected names, wall s from launch to the worker's line, the
-        line), once the worker has exited."""
+    def wait(self):
+        """(exit code, stdout, stderr, wall s from launch), once the
+        process has exited."""
         try:
             self.proc.wait(timeout=max(
                 1.0, WORKER_TIMEOUT_S - (time.monotonic() - self.t1)))
@@ -1799,8 +1819,14 @@ class PodWorker:
         launch_s = time.monotonic() - self.t1
         self.out.seek(0)
         self.err.seek(0)
-        out = worker_result(self.proc.returncode, self.out.read(),
-                            self.err.read())
+        return self.proc.returncode, self.out.read(), self.err.read(), \
+            launch_s
+
+    def result(self, tag):
+        """(injected names, wall s from launch to the worker's line, the
+        line), once the worker has exited."""
+        rc, out, err, launch_s = self.wait()
+        out = worker_result(rc, out, err)
         injected = self.injected
         log(f"{tag} pod on {self.pod.node_name} with injected "
             f"{sorted(injected)} (coordinator {self.host} -> 127.0.0.1); "
@@ -1882,7 +1908,8 @@ def phase_schedule(bootstrap):
         f"{backlog['cycles'][-1]['jobs_running']} jobs running, "
         f"{backlog['cycles'][-1]['gpus_bound']:g} GPUs bound")
     return dict(hosts=SCHED_HOSTS, gpus=SCHED_HOSTS * 8, build_s=build_s,
-                agent=agent, backlog=backlog, end_to_end=e2e)
+                agent=agent, backlog=backlog, end_to_end=e2e), \
+        (cluster, mgr, sched, node)
 
 
 # -- phase_wire: the control plane over the wire ------------------------
@@ -2379,6 +2406,623 @@ def phase_wire(bootstrap, smi, sched):
                 guard=guard, crash=crash)
 
 
+# -- phase_preempt: preemption and reclaim on the settled fleet ----------
+
+# the default conf with the preempting actions inserted before backfill
+PREEMPT_ACTIONS = ["enqueue", "allocate", "elastic", "gangpreempt",
+                   "preempt", "reclaim", "backfill"]
+PREEMPT_PRIORITY = 1000       # the preemptors' PriorityClass value
+SPOT_PRIORITY = 100           # the spot layer's, above the backlog's 0
+PREEMPT_GANG_HOSTS = 32       # one IB fabric's hosts
+PREEMPT_SINGLES = 16          # 8-GPU single-host jobs, half in each queue
+SPOT_FABRICS = 3              # research fabrics whose jobs finish first
+SPOT_JOB_HOSTS = 8            # a spot job's pods (8 GPUs each), min 1
+PROD_WEIGHT_LAUNCH = 3        # prod's queue weight from the launch on
+# what conformance keeps from every eviction (plugins/conformance.py),
+# the classes with Kubernetes' own values
+CRITICAL_NAMESPACES = ("kube-system",)
+CRITICAL_CLASSES = {"system-cluster-critical": 2000000000,
+                    "system-node-critical": 2000001000}
+# one DGX H100 SuperPOD NVLink domain (32 hosts, 256 GPUs) in an IB
+# fabric of its own, tainted for the jobs that ask for it: low-priority
+# prod gangs fill it, and a high-priority prod gang held to one NVLink
+# domain takes it back through gangpreempt
+DGX_DOMAIN, DGX_FABRIC = "dgx256", "su-dgx"
+DGX_TAINT = "volcano-tpu.io/smoke-dgx"
+DGX_FILLER_HOSTS = 8          # each filler gang's hosts (whole gang, min 8)
+PREEMPT_MAX_CYCLES = 8
+# the event message each action gives the pod it evicts
+EVICT_REASONS = (("gang-preempted for ", "gangpreempt"),
+                 ("preempted by ", "preempt"),
+                 ("reclaimed by queue ", "reclaim"))
+
+
+def gpu_job(name, queue, pods, priority_class, topology=None,
+            namespace="default", dgx=False):
+    """A gang of `pods` whole 8-GPU hosts; `dgx`: it tolerates
+    DGX_TAINT (and a filler also selects the domain by its label)."""
+    from volcano_tpu_torch.api.pod import Container, Pod, Toleration
+    from volcano_tpu_torch.api.resource import GPU
+    from volcano_tpu_torch.api.vcjob import TaskSpec, VCJob
+    tolerations = [Toleration(key=DGX_TAINT, operator="Exists")] \
+        if dgx else []
+    return VCJob(
+        name=name, namespace=namespace, min_available=pods, queue=queue,
+        priority_class=priority_class, network_topology=topology,
+        tasks=[TaskSpec(name="worker", replicas=pods, template=Pod(
+            name="t", tolerations=tolerations, containers=[Container(
+                requests={"cpu": 8, "memory": "32Gi", GPU: 8})]))])
+
+
+def preemptor_rounds():
+    """The high-priority traffic in two rounds: a prod gang of
+    PREEMPT_GANG_HOSTS whole hosts held to one IB fabric (hard topology
+    at the fabric's tier), a prod gang of DGX_DOMAIN's hosts held to one
+    NVLink domain (the tier below), and half of PREEMPT_SINGLES 8-GPU
+    single-host jobs in research; then the other half in prod."""
+    from volcano_tpu_torch.api.podgroup import NetworkTopologySpec
+    from volcano_tpu_torch.api.types import NetworkTopologyMode
+    singles = {q: [gpu_job(f"hp-{q[0]}{i:02d}", q, 1, "smoke-high")
+                   for i in range(PREEMPT_SINGLES // 2)]
+               for q in ("research", "prod")}
+    return [[gpu_job("hp-gang", "prod", PREEMPT_GANG_HOSTS, "smoke-high",
+                     NetworkTopologySpec(NetworkTopologyMode.HARD, 2)),
+             gpu_job("hp-nvl", "prod", dgx_hosts(), "smoke-high",
+                     NetworkTopologySpec(NetworkTopologyMode.HARD, 1),
+                     dgx=True)] +
+            singles["research"], singles["prod"]]
+
+
+def dgx_hosts():
+    from volcano_tpu_torch.api.devices.gpu.topology import WELL_KNOWN
+    return WELL_KNOWN["dgx-h100-256"].hosts
+
+
+def add_dgx_domain(cluster):
+    """DGX_DOMAIN's hosts joined to the fleet, tainted DGX_TAINT, and the
+    hypernode tree rediscovered (a tier-1 domain under DGX_FABRIC)."""
+    from volcano_tpu_torch.api.devices.gpu.topology import domain_for
+    from volcano_tpu_torch.api.pod import Taint
+    from volcano_tpu_torch.controllers.hypernode import HyperNodeController
+    from volcano_tpu_torch.simulator import domain_nodes
+    for node in domain_nodes(domain_for(DGX_DOMAIN, "dgx-h100-256"),
+                             ib_fabric=DGX_FABRIC):
+        node.taints = [Taint(key=DGX_TAINT, value="true")]
+        cluster.add_node(node)
+    ctrl = HyperNodeController()
+    ctrl.initialize(cluster)
+    ctrl.sync()
+
+
+def dgx_fillers():
+    """Low-priority prod gangs of DGX_FILLER_HOSTS hosts, at their gang
+    floor, that fill DGX_DOMAIN (selected by its NVLink clique label)."""
+    from volcano_tpu_torch.api.types import GPU_CLIQUE_LABEL
+    jobs = []
+    for i in range(dgx_hosts() // DGX_FILLER_HOSTS):
+        job = gpu_job(f"dgx-low{i}", "prod", DGX_FILLER_HOSTS, "smoke-low",
+                      dgx=True)
+        job.tasks[0].template.node_selector = {GPU_CLIQUE_LABEL: DGX_DOMAIN}
+        jobs.append(job)
+    return jobs
+
+
+def is_critical(pod):
+    """conformance's rule: a pod in a critical namespace or of a
+    system-critical PriorityClass is never evicted."""
+    return pod.namespace in CRITICAL_NAMESPACES or \
+        pod.priority_class in CRITICAL_CLASSES
+
+
+def spot_jobs(n):
+    """The spot layer: research jobs of SPOT_JOB_HOSTS 8-GPU pods that
+    run with one (minAvailable 1), so all but one pod of each may be
+    taken back; the backlog's jobs run at their gang floor
+    (minAvailable = replicas), which preempt and reclaim never break.
+    Two of them are critical, and conformance keeps them whole: the
+    first runs in kube-system at the spot priority, the second under
+    system-node-critical."""
+    jobs = []
+    for i in range(n):
+        job = gpu_job(f"spot{i:02d}", "research", SPOT_JOB_HOSTS,
+                      "system-node-critical" if i == 1 else "smoke-low",
+                      namespace=CRITICAL_NAMESPACES[0] if i == 0
+                      else "default")
+        job.min_available = 1
+        job.tasks[0].min_available = 1
+        jobs.append(job)
+    return jobs
+
+
+def fabric_tenants(cluster):
+    """IB fabric -> the uids of the jobs with a pod running in it (this
+    machine's node is in no fabric, DGX_FABRIC is left out)."""
+    from volcano_tpu_torch.controllers.hypernode import IB_FABRIC_LABEL
+    out = {}
+    for pod in cluster.pods.values():
+        if pod.node_name and not pod.is_terminated():
+            fab = cluster.nodes[pod.node_name].labels.get(IB_FABRIC_LABEL)
+            if fab and fab != DGX_FABRIC:
+                out.setdefault(fab, set()).add(pod.owner)
+    return out
+
+
+def finish_jobs(cluster, uids):
+    """The jobs' pods complete (the kubelet reports them Succeeded)."""
+    for pod in list(cluster.pods.values()):
+        if pod.owner in uids and pod.node_name and not pod.is_terminated():
+            cluster.complete_pod(pod.key)
+
+
+def queue_gpus(cluster):
+    """nvidia.com/gpu held (bound, not finished, not releasing) by queue."""
+    from volcano_tpu_torch.api.resource import GPU
+    from volcano_tpu_torch.api.types import TaskStatus
+    by_uid = {j.uid: j.queue for j in cluster.vcjobs.values()}
+    out = {}
+    for pod in cluster.pods.values():
+        if pod.node_name and not pod.is_terminated() and \
+                pod.phase is not TaskStatus.RELEASING:
+            q = by_uid.get(pod.owner)
+            out[q] = out.get(q, 0.0) + pod.resource_requests().get(GPU)
+    return out
+
+
+def preempt_invariants(cluster, evicted, before, fleet_gpus):
+    """The cycle's evictions and what is bound after it: no gang below
+    its minAvailable, no critical pod evicted, every preempt (and
+    gangpreempt) victim of lower priority than its preemptor, every
+    reclaim victim from a queue above its deserved share (by weight)
+    when the cycle began, hard gangs inside one IB fabric (one NVLink
+    domain at tier 1), no node over its GPUs."""
+    from volcano_tpu_torch.api.resource import GPU, Resource
+    from volcano_tpu_torch.api.types import GPU_CLIQUE_LABEL, TaskStatus
+    from volcano_tpu_torch.controllers.hypernode import IB_FABRIC_LABEL
+    jobs = {j.uid: j for j in cluster.vcjobs.values()}
+    prio = {pc.name: pc.value
+            for pc in cluster.priority_classes.values()}
+    weights = {q.name: q.weight for q in cluster.queues.values()
+               if q.name in ("research", "prod")}
+    broken = []
+    for key, reason, owner in evicted:
+        pod_job = jobs.get(owner)
+        pod = cluster.pods.get(key)
+        if pod is not None and is_critical(pod):
+            broken.append(f"critical pod {key} evicted")
+        if pod_job is None:
+            continue
+        vprio = prio.get(pod_job.priority_class, 0)
+        for prefix, action in EVICT_REASONS[:2]:
+            if reason.startswith(prefix):
+                # the preemptor: a task's key (preempt) or a job's
+                who = reason[len(prefix):]
+                preemptor = cluster.pods.get(who)
+                pjob = jobs.get(preemptor.owner) if preemptor else \
+                    cluster.vcjobs.get(who)
+                pprio = prio.get(pjob.priority_class, 0) if pjob else None
+                if pprio is None or vprio >= pprio:
+                    broken.append(f"{key} ({vprio}) {action}ed by {who} "
+                                  f"({pprio})")
+                break
+        else:
+            if reason.startswith(EVICT_REASONS[2][0]):
+                q = pod_job.queue
+                share = fleet_gpus * weights.get(q, 0) / sum(weights.values())
+                if before.get(q, 0.0) <= share:
+                    broken.append(f"{key} reclaimed from {q} at "
+                                  f"{before.get(q, 0.0):g} GPUs, deserved "
+                                  f"{share:g}")
+    bound, used = {}, {}
+    for pod in cluster.pods.values():
+        if pod.node_name and not pod.is_terminated() and \
+                pod.phase is not TaskStatus.RELEASING:
+            bound.setdefault(pod.owner, []).append(pod.node_name)
+            used[pod.node_name] = used.get(pod.node_name, 0.0) + \
+                pod.resource_requests().get(GPU)
+    for uid, nodes in bound.items():
+        job = jobs.get(uid)
+        if job is None:
+            continue
+        if len(nodes) < job.min_available:
+            broken.append(f"{job.key} bound {len(nodes)} < minAvailable "
+                          f"{job.min_available}")
+        if job.network_topology is not None:
+            label = GPU_CLIQUE_LABEL if \
+                job.network_topology.highest_tier_allowed == 1 \
+                else IB_FABRIC_LABEL
+            if len({cluster.nodes[n].labels.get(label)
+                    for n in nodes}) != 1:
+                broken.append(f"hard gang {job.key} across {label}")
+    for name, gpus in used.items():
+        cap = Resource.from_resource_list(
+            cluster.nodes[name].allocatable).get(GPU)
+        if gpus > cap + 1e-9:
+            broken.append(f"{name} holds {gpus:g} of {cap:g} GPUs")
+    return broken
+
+
+def preempt_cycle(cluster, mgr, sched, hard_keys, seen, fleet_gpus, tally):
+    """One controller sync, scheduling cycle and tick: its evictions by
+    action (added to `tally`), its spans, and the invariants read after
+    it (raises if one breaks)."""
+    from volcano_tpu_torch.api.resource import GPU
+    before = queue_gpus(cluster)
+    n_events = len(cluster.events)
+    t0 = time.perf_counter()
+    mgr.sync_all()
+    t1 = time.perf_counter()
+    sched.run_once()
+    t2 = time.perf_counter()
+    spans = cycle_spans(hard_keys, seen)
+    evicted, by_action = [], {a: 0 for _, a in EVICT_REASONS}
+    for key, reason, message in cluster.events[n_events:]:
+        if reason != "Evict":
+            continue
+        pod = cluster.pods.get(key)
+        evicted.append((key, message, pod.owner if pod else ""))
+        action = next((a for pre, a in EVICT_REASONS
+                       if message.startswith(pre)), "other")
+        by_action[action] = by_action.get(action, 0) + 1
+        tally["evictions"][action] = tally["evictions"].get(action, 0) + 1
+        if pod is not None:
+            tally["gpus"][action] = tally["gpus"].get(action, 0.0) + \
+                pod.resource_requests().get(GPU)
+    broken = preempt_invariants(cluster, evicted, before, fleet_gpus)
+    cluster.tick()
+    if broken:
+        raise AssertionError(f"an invariant broke: {broken}")
+    return dict(sync_ms=(t1 - t0) * 1e3, cycle_ms=(t2 - t1) * 1e3,
+                evicted=by_action, queue_gpus_before=before, **spans)
+
+
+def phase_preempt(plane, smi):
+    """phase_schedule's settled fleet (1024 hosts, its backlog bound and
+    pending) under the default conf with gangpreempt, preempt and
+    reclaim before backfill.  The backlog moves on: the jobs of
+    SPOT_FABRICS research-only fabrics finish, and a spot layer of
+    research jobs that run with one pod of their eight (the only work
+    preempt and reclaim may take from: the backlog runs at its gang
+    floor) fills them; two of its jobs are critical (kube-system, and
+    system-node-critical).  DGX_DOMAIN joins the fleet, filled by
+    low-priority prod gangs.  Round 1, under a PriorityClass above the
+    backlog's and the spot layer's: a prod gang of 32 whole hosts held
+    to one IB fabric, as the one job of a prod-only fabric finishes, a
+    prod gang of DGX_DOMAIN's 32 hosts held to one NVLink domain, and 8
+    8-GPU single-host jobs in research.  Round 2, once those are bound:
+    prod's weight rises to PROD_WEIGHT_LAUNCH, and 8 such jobs arrive in
+    prod.  Cycled until every preemptor is bound, with the invariants
+    read after each cycle; the critical pods must all still be bound."""
+    from volcano_tpu_torch.api.resource import GPU, Resource
+    from volcano_tpu_torch.api.types import GPU_CLIQUE_LABEL, TaskStatus
+    from volcano_tpu_torch.cache.cluster import PriorityClass
+    from volcano_tpu_torch.controllers.hypernode import IB_FABRIC_LABEL
+    cluster, mgr, sched, node = plane
+    sched.conf.actions = list(PREEMPT_ACTIONS)
+    cluster.add_priority_class(PriorityClass("smoke-high", PREEMPT_PRIORITY))
+    cluster.add_priority_class(PriorityClass("smoke-low", SPOT_PRIORITY))
+    for name, value in CRITICAL_CLASSES.items():
+        cluster.add_priority_class(PriorityClass(name, value))
+    jobs = {j.uid: j for j in cluster.vcjobs.values()}
+    tenants = fabric_tenants(cluster)
+    research_only = sorted(f for f, uids in tenants.items() if all(
+        jobs[u].queue == "research" for u in uids))[:SPOT_FABRICS]
+    if len(research_only) < SPOT_FABRICS:
+        raise AssertionError(f"research-only fabrics {research_only}")
+    finish_jobs(cluster, set().union(*(tenants[f] for f in research_only)))
+    spot = [cluster.add_vcjob(j) for j in spot_jobs(
+        SPOT_FABRICS * SCHED_FABRIC_HOSTS // SPOT_JOB_HOSTS)]
+    add_dgx_domain(cluster)
+    fillers = [cluster.add_vcjob(j) for j in dgx_fillers()]
+    fleet_gpus = sum(Resource.from_resource_list(n.allocatable).get(GPU)
+                     for n in cluster.nodes.values() if n.name != node.name)
+    hard_keys = {j.key for j in cluster.vcjobs.values()
+                 if j.network_topology is not None}
+    seen = set()
+    tally = dict(evictions={a: 0 for _, a in EVICT_REASONS},
+                 gpus={a: 0.0 for _, a in EVICT_REASONS})
+    setup = preempt_cycle(cluster, mgr, sched, hard_keys, seen, fleet_gpus,
+                          tally)
+
+    def bound_pods(batch):
+        uids = {j.uid for j in batch}
+        return [p for p in cluster.pods.values()
+                if p.owner in uids and p.node_name and
+                p.phase in (TaskStatus.BOUND, TaskStatus.RUNNING)]
+    spot_keys = {p.key for p in bound_pods(spot)}
+    spot_pods = len(spot_keys)
+    critical = sorted(p.key for p in bound_pods(spot) if is_critical(p))
+    filler_nodes = {p.node_name for p in bound_pods(fillers)}
+    if len(filler_nodes) != dgx_hosts() or len(critical) != \
+            2 * SPOT_JOB_HOSTS:
+        raise AssertionError(f"the fillers hold {len(filler_nodes)} hosts, "
+                             f"{len(critical)} critical pods bound")
+    log(f"[preempt] the jobs of research-only fabrics {research_only} "
+        f"finished; the spot layer bound {spot_pods} pods ({len(critical)} "
+        f"critical) and {len(fillers)} low-priority prod gangs all "
+        f"{len(filler_nodes)} hosts of {DGX_DOMAIN} in one cycle "
+        f"({setup['cycle_ms']:.3f} ms, evictions {setup['evicted']}); "
+        f"GPUs by queue {queue_gpus(cluster)}, fleet {fleet_gpus:g}")
+
+    tenants = fabric_tenants(cluster)
+    prod_fabric = next(f for f, uids in sorted(tenants.items())
+                       if len(uids) == 1 and jobs.get(next(iter(uids)))
+                       and jobs[next(iter(uids))].queue == "prod")
+    finish_jobs(cluster, tenants[prod_fabric])
+    bound_s, cycles, pre = {}, [], []
+    for rnd, arrivals in enumerate(preemptor_rounds(), 1):
+        if rnd == 2:
+            cluster.queues["prod"].weight = PROD_WEIGHT_LAUNCH
+        t_submit = time.monotonic()
+        batch = [cluster.add_vcjob(j) for j in arrivals]
+        pre += batch
+        hard_keys |= {j.key for j in batch if j.network_topology is not None}
+        while not all(j.key in bound_s for j in batch):
+            if len(cycles) == PREEMPT_MAX_CYCLES:
+                raise AssertionError(
+                    f"preemptors still pending after {len(cycles)} cycles: "
+                    f"{sorted(j.key for j in pre if j.key not in bound_s)}")
+            cycles.append(preempt_cycle(cluster, mgr, sched, hard_keys, seen,
+                                        fleet_gpus, tally))
+            for job in batch:
+                if job.key not in bound_s and \
+                        len(bound_pods([job])) >= job.min_available:
+                    bound_s[job.key] = time.monotonic() - t_submit
+            c = cycles[-1]
+            log(f"[preempt] round {rnd}, cycle {len(cycles)}: controllers "
+                f"{c['sync_ms']:.3f} ms, scheduler {c['cycle_ms']:.3f} ms "
+                f"(actions {c['actions_ms']}), evictions {c['evicted']}, "
+                f"{len(bound_s)} of {len(pre)} preemptors bound; GPUs by "
+                f"queue before {c['queue_gpus_before']}; invariants hold")
+
+    def labels_of(key, label):
+        job = cluster.vcjobs[key]
+        return sorted({cluster.nodes[p.node_name].labels.get(label)
+                       for p in bound_pods([job])})
+    fabrics = labels_of("default/hp-gang", IB_FABRIC_LABEL)
+    domains = labels_of("default/hp-nvl", GPU_CLIQUE_LABEL)
+    if len(fabrics) != 1 or domains != [DGX_DOMAIN] or any(
+            p.node_name == node.name for p in bound_pods(pre)):
+        raise AssertionError(f"the gang spans {fabrics}, the NVLink gang "
+                             f"{domains}, or a preemptor landed on this "
+                             "machine's node")
+    if not tally["evictions"]["gangpreempt"]:
+        raise AssertionError("the NVLink gang bound without gangpreempt")
+    # conformance's work: the critical pods stayed while spot pods of
+    # their queue, fabrics and (kube-system's) priority were taken
+    kept = {p.key for p in bound_pods(spot) if is_critical(p)}
+    if kept != set(critical):
+        raise AssertionError(f"critical pods lost: "
+                             f"{sorted(set(critical) - kept)}")
+    spot_taken = sum(1 for key, reason, _ in cluster.events
+                     if reason == "Evict" and key in spot_keys)
+    log(f"[preempt] evictions by action {tally['evictions']}, GPUs taken "
+        f"back {tally['gpus']}; submit to bound s (from its round's "
+        f"arrival) {json.dumps({k.split('/')[1]: round(v, 3) for k, v in bound_s.items()})}; "
+        f"the gang in {fabrics[0]} ({prod_fabric}'s one job finished as it "
+        f"arrived), the NVLink gang in {domains[0]}; all {len(critical)} "
+        f"critical pods still bound, {spot_taken} other spot pods evicted; "
+        f"GPUs by queue {queue_gpus(cluster)} ({smi}; host times)")
+    return dict(spot_fabrics=research_only, spot_pods=spot_pods,
+                critical_pods=len(critical), critical_kept=len(kept),
+                spot_pods_evicted=spot_taken, dgx_domain=DGX_DOMAIN,
+                dgx_fillers=len(fillers),
+                setup=setup, prod_fabric=prod_fabric, cycles=cycles,
+                evictions=tally["evictions"], gpus_taken_back=tally["gpus"],
+                submit_to_bound_s=bound_s, gang_fabric=fabrics[0],
+                nvl_gang_domain=domains[0])
+
+
+# -- phase_failover: a failed NVLink domain drained and resumed ---------
+
+FAILOVER_TTL_S = 3.0       # the quarantine; the controller's default is 300
+FAILOVER_STEPS = 6
+FAILOVER_SAVE_EVERY = 2    # checkpoints at steps 2 and 4
+FAILOVER_RESUME = 4
+FAILOVER_MAX_CYCLES = 40
+RTOL_FAILOVER = 1e-4       # resumed against uninterrupted losses, f32
+# the pod's training process before the failure: the worker's model,
+# seeds and mesh, checkpointed every FAILOVER_SAVE_EVERY steps (the
+# worker itself only resumes), one JSON line of its losses last
+FAILOVER_TRAIN = r"""
+import json, os, sys
+import torch, torch.distributed as dist
+from volcano_tpu_torch.workloads import bootstrap, checkpoint, train, worker
+from volcano_tpu_torch.workloads import mesh as mesh_lib
+from volcano_tpu_torch.workloads.device import resolve_device
+steps, every, last_save = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3])
+device = resolve_device(os.environ.get("WORKER_DEVICE") or None)
+info = bootstrap.initialize(device=device)
+n = dist.get_world_size()
+mesh = mesh_lib.make_mesh({"dp": n, "fsdp": 1}, device.type)
+cfg, opt = worker.worker_config(), train.make_optimizer()
+params, state, _ = train.init_sharded(torch.Generator().manual_seed(0), cfg,
+                                      mesh, opt)
+params, state, start = checkpoint.resume_state(params, state)
+batch = train.synthetic_batch(torch.Generator().manual_seed(1), cfg, n,
+                              worker.SEQ_LEN, mesh)
+step_fn = train.make_train_step(cfg, opt, mesh)
+losses = {}
+for s in range(start + 1, steps + 1):
+    params, state, m = step_fn(params, state, batch)
+    losses[s] = float(m["loss"])
+    if s % every == 0 and s <= last_save:
+        checkpoint.save(info.checkpoint_dir, step=s, params=params,
+                        opt_state=state)
+bootstrap.shutdown()
+print(json.dumps({"start": start, "losses": losses,
+                  "device": str(params["embed"].device)}), flush=True)
+"""
+
+
+def failover_cluster(node):
+    """This machine's node (an NVLink domain of its own) beside one IB
+    fabric of SCHED_FABRIC_HOSTS HGX H100 hosts."""
+    from volcano_tpu_torch.simulator import make_gpu_cluster
+    return make_gpu_cluster(
+        [(f"hgx{i:04d}", "hgx-h100-8") for i in range(SCHED_FABRIC_HOSTS)],
+        ib_fabrics={f"hgx{i:04d}": "su00"
+                    for i in range(SCHED_FABRIC_HOSTS)},
+        extra_nodes=[node])
+
+
+def failover_cycle(cluster, mgr, sched):
+    mgr.sync_all()
+    sched.run_once()
+    cluster.tick()
+
+
+def phase_failover(bootstrap, smi):
+    """A vcjob on this card trains the worker's tiny f32 model on cuda
+    and checkpoints every FAILOVER_SAVE_EVERY steps; then the node agent
+    reports the card's host Failed over GpuHealthHandler's K ticks.  The
+    failover controller drains the job (one restart), quarantines the
+    NVLink domain and stamps the last checkpoint step.  Once the host is
+    healthy and the quarantine lifted, the job rebinds to the card and
+    the port's worker resumes there at the stamped step; its loss is
+    held against the uninterrupted run's."""
+    from volcano_tpu_torch import metrics
+    from volcano_tpu_torch.agent.agent import FakeUsageProvider, NodeAgent
+    from volcano_tpu_torch.agent.handlers import GpuHealthHandler
+    from volcano_tpu_torch.api.slicehealth import (
+        CHECKPOINT_DIR_ANNOTATION, FAILOVER_GENERATION_ANNOTATION,
+        LAST_STEP_ANNOTATION, RESUME_STEP_ANNOTATION)
+    from volcano_tpu_torch.api.types import JobPhase
+    from volcano_tpu_torch.controllers import ControllerManager
+    from volcano_tpu_torch.scheduler import Scheduler
+    from volcano_tpu_torch.simulator import fail_host, heal_host
+    from volcano_tpu_torch.webhooks.admission import default_admission
+    node = local_node()
+    cluster = failover_cluster(node)
+    cluster.admission = default_admission()
+    mgr = ControllerManager(cluster, enabled=["job", "podgroup", "queue",
+                                              "failover"])
+    ctrl = next(c for c in mgr.controllers if c.name == "failover")
+    ctrl.quarantine_ttl = FAILOVER_TTL_S
+    sched = Scheduler(cluster, schedule_period=0)
+    tmp = tempfile.mkdtemp(prefix="vtp-failover-")
+    ckpt = os.path.join(tmp, "ckpt")
+    try:
+        job = e2e_job(node)
+        job.name = "failover"
+        job.annotations[CHECKPOINT_DIR_ANNOTATION] = ckpt
+        job = cluster.add_vcjob(job)
+
+        def pod_of():
+            placed = [p for p in cluster.pods.values()
+                      if p.owner == job.uid and p.node_name]
+            return placed[0] if len(placed) == 1 else None
+
+        for _ in range(5):
+            failover_cycle(cluster, mgr, sched)
+            if cluster.vcjobs[job.key].phase is JobPhase.RUNNING:
+                break
+        first = pod_of()
+        if first is None or first.node_name != node.name:
+            raise AssertionError("the failover job is not on this card")
+        rc, out, err, first_s = PodWorker(
+            first, node, bootstrap,
+            ("-c", FAILOVER_TRAIN, str(FAILOVER_STEPS),
+             str(FAILOVER_SAVE_EVERY), str(FAILOVER_RESUME))).wait()
+        if rc != 0:
+            raise AssertionError(f"the training pod exited {rc}:\n"
+                                 f"{err[-3000:]}")
+        straight = json.loads(out.strip().splitlines()[-1])
+        log(f"[failover] the pod's training run on {first.node_name}: "
+            f"{first_s:.3f} s, losses {straight['losses']} on "
+            f"{straight['device']}; checkpoints at steps "
+            f"{sorted(int(x) for x in os.listdir(ckpt))}")
+        if not straight["device"].startswith("cuda"):
+            raise AssertionError("the training run was not on the card")
+        # the workload's supervisor publishes the last durable step
+        pg = cluster.podgroups[job.key]
+        pg.annotations[LAST_STEP_ANNOTATION] = str(FAILOVER_RESUME)
+        cluster.update_podgroup_status(pg)
+
+        provider = FakeUsageProvider()
+        agent = NodeAgent(cluster, node.name, provider=provider,
+                          handlers=[GpuHealthHandler])
+        t_fault = time.monotonic()
+        fail_host(cluster, node.name, provider=provider, chips_healthy=0)
+        verdicts = []
+        for _ in range(GpuHealthHandler.FAIL_SYNCS):
+            agent.sync()
+            verdicts.append(cluster.slicehealthreports[node.name].verdict)
+        failover_cycle(cluster, mgr, sched)
+        cycles = 1
+        while pod_of() is not None and cycles < FAILOVER_MAX_CYCLES:
+            failover_cycle(cluster, mgr, sched)
+            cycles += 1
+        t_drained = time.monotonic()
+        restarts = [m for k, r, m in cluster.events if r == "FailoverDrain"]
+        stamped = cluster.vcjobs[job.key].annotations.get(
+            RESUME_STEP_ANNOTATION)
+        log(f"[failover] agent verdicts {verdicts}; drained in {cycles} "
+            f"cycle(s), {t_drained - t_fault:.3f} s after the fault; "
+            f"{len(restarts)} restart(s): {restarts}; resume step stamped "
+            f"{stamped}")
+        if verdicts[-1] != "Failed" or len(restarts) != 1 or \
+                stamped != str(FAILOVER_RESUME) or pod_of() is not None:
+            raise AssertionError("the failover drain is off")
+
+        heal_host(cluster, node.name, provider=provider)
+        for _ in range(GpuHealthHandler.RECOVER_SYNCS):
+            agent.sync()
+        while cycles < FAILOVER_MAX_CYCLES and (
+                pod_of() is None or cluster.vcjobs[job.key].phase
+                is not JobPhase.RUNNING):
+            time.sleep(0.2)          # the quarantine's TTL runs on
+            failover_cycle(cluster, mgr, sched)
+            cycles += 1
+        second = pod_of()
+        t_rebound = time.monotonic()
+        if second is None or second.node_name != node.name:
+            raise AssertionError(f"the job came back on "
+                                 f"{second.node_name if second else None}, "
+                                 "not on this card")
+        env = second.containers[0].env
+        _, resume_s, resumed = PodWorker(
+            second, node, bootstrap,
+            WORKER_STEPS=FAILOVER_STEPS - FAILOVER_RESUME).result(
+                "[failover] resumed:")
+        t_resumed = time.monotonic()
+        want = straight["losses"][str(FAILOVER_STEPS)]
+        rel = abs(resumed["loss"] - want) / abs(want)
+        observed = {name: metrics.get_observations(
+            f"failover_{name}_seconds", slice=node.name)
+            for name in ("detect", "drain", "reschedule", "resume", "mttr")}
+        log(f"[failover] rebound to {second.node_name} after {cycles} "
+            f"cycles, {t_rebound - t_drained:.3f} s after the drain; env "
+            f"VTP_RESUME_STEP={env.get('VTP_RESUME_STEP')} "
+            f"VTP_CHECKPOINT_DIR={env.get('VTP_CHECKPOINT_DIR')}; the "
+            f"worker {resume_s:.3f} s to its line; step {FAILOVER_STEPS} loss {resumed['loss']} against the "
+            f"uninterrupted run's {want:.6f} (rel {rel:.2e}, tolerance "
+            f"{RTOL_FAILOVER:g} relative, f32; the worker's line rounds "
+            f"to 4 decimals)")
+        log(f"[failover] the controller's metrics (s): {observed}; it "
+            "counts a reschedule only off the failed NVLink domain, and "
+            "this job can run on this card alone, so reschedule, resume "
+            "and MTTR stay unobserved; by this script's clock: fault to "
+            f"drained {t_drained - t_fault:.3f} s, drained to rebound "
+            f"{t_rebound - t_drained:.3f} s, rebound to the worker's line "
+            f"{t_resumed - t_rebound:.3f} s, fault to the worker's line "
+            f"{t_resumed - t_fault:.3f} s ({smi}; host times)")
+        if resumed["start_step"] != int(stamped) or rel > RTOL_FAILOVER or \
+                cluster.vcjobs[job.key].annotations.get(
+                    FAILOVER_GENERATION_ANNOTATION) != "1":
+            raise AssertionError("the resumed run is off")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(first_launch_s=first_s, resumed_launch_s=resume_s,
+                cycles=cycles, stamped_step=int(stamped),
+                start_step=resumed["start_step"],
+                losses=straight["losses"], resumed_loss=resumed["loss"],
+                rel_err=rel, controller_s=observed,
+                fault_to_drained_s=t_drained - t_fault,
+                drained_to_rebound_s=t_rebound - t_drained,
+                rebound_to_line_s=t_resumed - t_rebound,
+                fault_to_line_s=t_resumed - t_fault)
+
+
 def main() -> int:
     # the port first: alone, without the repo, the script fails here
     # before it prints anything
@@ -2411,9 +3055,16 @@ def main() -> int:
     # the scheduling path launches no kernel in this process (its worker
     # trains the tiny f32 config with flash off, in a process of its own)
     zero_counts(fa)
-    sc = phase_schedule(bootstrap)
+    sc, plane = phase_schedule(bootstrap)
     sc["wire"] = phase_wire(bootstrap, smi, sc)
     sc["kernel_launches"] = launch_counts(fa)
+    # preemption and failover launch none either (the resumed worker
+    # trains the tiny f32 config, flash off, in its own process)
+    zero_counts(fa)
+    sc["preempt"] = phase_preempt(plane, smi)
+    del plane
+    sc["failover"] = phase_failover(bootstrap, smi)
+    sc["preempt_failover_kernel_launches"] = launch_counts(fa)
     common = {"shape": list(SLICE_SHAPE), "dtype": "bfloat16",
               "causal": True, "card": smi,
               # every case each kernel was held at against its plain version

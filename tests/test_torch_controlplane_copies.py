@@ -58,6 +58,14 @@ server.tlsutil server.httputil server.durability server.replication
 server.state_server server.__init__ server.audit_exporter
 webhooks.server server.__main__ cache.remote_cluster cache.partitioned
 leaderelection dumper agentscheduler __main__
+uthelper actions.bundle actions.preempt actions.reclaim actions.gangpreempt
+actions.shuffle plugins.capacity plugins.sla plugins.pdb plugins.cdp
+plugins.tdm plugins.nodegroup plugins.usage plugins.resourcequota
+plugins.tasktopology plugins.extender plugins.datalocality plugins.dra
+plugins.serving plugins.numa_policy plugins.resource_strategy_fit
+plugins.numaaware plugins.rescheduling controllers.elastic
+controllers.failover controllers.serving controllers.jobflow
+controllers.colocation controllers.garbagecollector
 """.split()
 
 # the port's own modules, counterparts of reference modules of other names
@@ -98,19 +106,14 @@ GPU_LAYER = {
                        "keyed by NVLink domain",
     "api.devices.__init__": "imports GPUDevices in place of TPUDevices",
     "cache.cache": "registers the gpu device in place of tpu",
-    "actions.__init__": "registers only the default conf's actions",
     "actions.elastic": "slices are NVLink domains in IB fabrics, counted "
                        "in nvidia.com/gpu",
     "actions.topology_alloc": "docstring: NVLink/IB tiers",
-    "plugins.__init__": "registers only the default conf's plugins and "
-                        "topology",
     "plugins.failover": "warm spares keyed by NVLink domain and shape",
     "plugins.elastic": "avoid filter keyed by NVLink domain",
     "plugins.deviceshare": "deviceshare.gpu.weight",
     "plugins.binpack": "nvidia.com/gpu weighted in place of TPU chips",
     "plugins.topology": "domain fractions counted in nvidia.com/gpu",
-    "controllers.__init__": "registers only the ported controllers "
-                            "(hyperjob among them, for the codec)",
     "controllers.hypernode": "nvlink-domain and ib-fabric tiers from the "
                              "clique and fabric labels and from "
                              "nvlink/ib fabric records",
@@ -137,7 +140,38 @@ GPU_LAYER = {
                            "no change number in a comment",
     "agentscheduler": "the fast path's device filter and score read the "
                       "gpu device in place of tpu",
-    "__main__": "--usage-source names the gpu collector",
+    "__main__": "--usage-source names the gpu collector; SIGTERM "
+                "closes the cluster client, so a client retrying "
+                "against a dead server stops (fault: it outlived "
+                "SIGTERM)",
+    "cache.remote_cluster": "the retry back-off waits on the client's "
+                            "stop event, so close() ends a call that "
+                            "is retrying against a dead server (fault: "
+                            "it slept its whole retry budget)",
+    "server.replication": "promote bumps the epoch before it publishes "
+                          "the leader role, and refuses votes in "
+                          "between as a leader does (fault: a reader "
+                          "saw role == leader with the old epoch); no "
+                          "change numbers for the WAL and the chaos "
+                          "engine",
+    "uthelper": "comment: a prebuilt cluster from "
+                "simulator.make_gpu_cluster",
+    "plugins.resource_strategy_fit": "the default packs nvidia.com/gpu "
+                                     "(MostAllocated, weight 2)",
+    "plugins.numaaware": "nvidia.com/gpu per NUMA cell against the GPU "
+                         "cells of api.numatopology; the legacy "
+                         "annotation's key is gpu",
+    "plugins.rescheduling": "the gpuFragmentation strategy "
+                            "consolidates sub-host GPU packs",
+    "controllers.elastic": "resizes the specs that request "
+                           "nvidia.com/gpu; no change number in the "
+                           "docstring",
+    "controllers.failover": "the failure unit is the NVLink domain "
+                            "(GPU_CLIQUE_LABEL); docstring: "
+                            "GpuHealthHandler and the worker's DCP "
+                            "resume",
+    "controllers.serving": "the pool is the NVLink domains "
+                           "(GPU_CLIQUE_LABEL) of the replicas",
 }
 
 
@@ -149,8 +183,6 @@ WORDING = {
     "actions.sweep": "docstring: no change number for the thread pilot",
     "cache.partitioned": "docstring: no change number for replication",
     "faults": "docstring: no change number for the WAL",
-    "server.replication": "docstring: no change numbers for the WAL and "
-                          "the chaos engine",
 }
 
 
@@ -253,11 +285,17 @@ def test_registries_are_the_port_own():
     assert "tpu" in rcache.REGISTERED_DEVICES
     assert tjp.job_plugin_exists("torch") and not tjp.job_plugin_exists("jax")
     assert rjp.job_plugin_exists("jax") and not rjp.job_plugin_exists("torch")
-    assert set(TCONTROLLERS) == {"job", "queue", "podgroup", "hypernode",
-                                 "sharding", "cronjob", "hyperjob"}
-    assert set(TCONTROLLERS) < set(RCONTROLLERS)
+    assert set(TCONTROLLERS) == {
+        "job", "queue", "podgroup", "hypernode", "sharding", "cronjob",
+        "hyperjob", "jobtemplate", "elastic", "failover", "jobflow",
+        "serving", "colocationconfig", "garbagecollector"}
+    assert set(TCONTROLLERS) == set(RCONTROLLERS)
+    assert TCONTROLLERS is not RCONTROLLERS
     assert tplugins.ACTIONS is not rplugins.ACTIONS
     tplugins.get_action("enqueue")   # loads the port's registrations
-    assert set(tplugins.ACTIONS) == {"enqueue", "allocate", "elastic",
-                                     "backfill"}
+    assert set(tplugins.ACTIONS) == {
+        "enqueue", "allocate", "elastic", "backfill", "preempt", "reclaim",
+        "gangpreempt", "gangreclaim", "shuffle"}
+    assert set(tplugins.ACTIONS) == set(rplugins.ACTIONS)
     assert tplugins.PLUGIN_BUILDERS is not rplugins.PLUGIN_BUILDERS
+    assert set(tplugins.PLUGIN_BUILDERS) == set(rplugins.PLUGIN_BUILDERS)

@@ -92,6 +92,23 @@ def test_control_plane_loads_neither_torch_nor_jax():
             "import volcano_tpu_torch.server\n"
             "import volcano_tpu_torch.cache.remote_cluster\n"
             "import volcano_tpu_torch.__main__\n"
+            "import volcano_tpu_torch.uthelper\n"
+            "import volcano_tpu_torch.actions\n"
+            "import volcano_tpu_torch.actions.preempt\n"
+            "import volcano_tpu_torch.actions.reclaim\n"
+            "import volcano_tpu_torch.actions.gangpreempt\n"
+            "import volcano_tpu_torch.actions.shuffle\n"
+            "import volcano_tpu_torch.plugins\n"
+            "import volcano_tpu_torch.plugins.numaaware\n"
+            "import volcano_tpu_torch.plugins.rescheduling\n"
+            "import volcano_tpu_torch.plugins.resource_strategy_fit\n"
+            "import volcano_tpu_torch.plugins.dra\n"
+            "import volcano_tpu_torch.controllers.elastic\n"
+            "import volcano_tpu_torch.controllers.failover\n"
+            "import volcano_tpu_torch.controllers.serving\n"
+            "import volcano_tpu_torch.controllers.jobflow\n"
+            "import volcano_tpu_torch.controllers.colocation\n"
+            "import volcano_tpu_torch.controllers.garbagecollector\n"
             f"roots = {FORBIDDEN + ('torch',)!r}\n"
             "bad = [m for m in sys.modules if any(m == r or "
             "m.startswith(r + '.') for r in roots)]\n"

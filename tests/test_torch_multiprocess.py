@@ -14,9 +14,11 @@ kubectl over the wire.
 
 Teardown: the processes are stopped in the reverse of their start,
 clients before the server, with SIGTERM and then SIGKILL after a short
-grace.  A client process whose server is already gone outlives SIGTERM
-by its wire retry budget (its retry loop sleeps in the main thread and
-does not see the stop event), which is the reference's behaviour too.
+grace.  A reference client process whose server is already gone
+outlives SIGTERM by its wire retry budget (its retry loop sleeps in the
+main thread and does not see the stop event); the port's SIGTERM
+closes the client, whose back-off waits on that stop, and the last
+test pins both.
 """
 
 import json
@@ -277,3 +279,65 @@ def test_tls_and_bearer_token_plane(tmp_path):
         if kubectl is not None:
             kubectl.close()
         plane.shutdown()
+
+
+def _controllers_against_a_dead_server(pkg, log):
+    """`python -m <pkg> --components controllers` against its package's
+    state server, in process, holding one job (the job controller reads
+    the job's commands over the wire every sync); the server is then
+    shut down, so every sync retries.  Returns the running process."""
+    import importlib
+    serve = importlib.import_module(f"{pkg}.server.state_server").serve
+    api = importlib.import_module(f"{pkg}.api.vcjob")
+    pods = importlib.import_module(f"{pkg}.api.pod")
+    client = importlib.import_module(f"{pkg}.cache.remote_cluster")
+    httpd, _ = serve(port=0)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    kubectl = client.RemoteCluster(url, start_watch=False)
+    kubectl.add_vcjob(api.VCJob(name="j", tasks=[api.TaskSpec(
+        name="w", template=pods.Pod(name="t", containers=[
+            pods.Container(requests={"cpu": 1})]))]))
+    kubectl.close()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", pkg, "--cluster-url", url, "--components",
+         "controllers", "--controllers", "job", "--period", "0.1"],
+        stdout=log, stderr=log, env=dict(os.environ, PYTHONPATH=REPO),
+        cwd=REPO)
+    return proc, httpd
+
+
+def test_sigterm_stops_a_client_retrying_against_a_dead_server(tmp_path):
+    """The reference's client process outlives SIGTERM once its server
+    is gone: the handler sets only the main loop's event, and the call
+    in flight sleeps out its 30 s retry budget.  The port's handler
+    closes the cluster client, whose back-off waits on that stop: the
+    process exits within about a second."""
+    procs = {}
+    try:
+        for pkg in ("volcano_tpu", "volcano_tpu_torch"):
+            procs[pkg] = _controllers_against_a_dead_server(
+                pkg, open(tmp_path / f"{pkg}.log", "w"))
+        for pkg, (proc, httpd) in procs.items():
+            log = tmp_path / f"{pkg}.log"
+            wait_for(lambda: "control plane up" in log.read_text(), 30,
+                     f"{pkg}'s controllers up")
+            httpd.shutdown()
+            httpd.server_close()
+        # a sync every 0.1 s: each process is now inside a call that
+        # retries (its budget is 30 s)
+        time.sleep(1.0)
+        t0 = time.monotonic()
+        for proc, _ in procs.values():
+            proc.send_signal(signal.SIGTERM)
+        port = procs["volcano_tpu_torch"][0]
+        assert port.wait(timeout=10) == 0
+        assert time.monotonic() - t0 < 1.5
+        time.sleep(max(0.0, t0 + 3.0 - time.monotonic()))
+        assert procs["volcano_tpu"][0].poll() is None, \
+            "the reference's client no longer outlives SIGTERM"
+    finally:
+        for proc, httpd in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=10)
+            httpd.server_close()

@@ -7,15 +7,24 @@ cannot reach its commit quorum and refuses the ack; an idempotency-
 keyed write committed by the old leader and retried against the
 promoted follower replays its recorded verdict.
 
-The last waits on the state its assertions read, never on a proxy: the
+The waits read the state their assertions read, never a proxy: the
 follower's shipped horizon (its durable WAL sequence has reached the
 leader's, so the write's idempotency record is there), and a finished
-promotion (the role is leader and the epoch's boot half is bumped;
-`Replication.promote` publishes the role before it bumps the epoch, so
-a wait on the role alone can read the old epoch).  Tolerance: exact.
+promotion (the role is leader and the epoch's boot half is bumped).
+
+The reference's `Replication.promote` publishes the leader role before
+it bumps the epoch, so a reader in between sees a leader with the
+follower's epoch; the port bumps the epoch first.  A test holds
+`on_promote` to force that window on both sides, and asks for a
+higher-term vote inside it: both refuse it, as a leader does.  A deposed
+leader that rejoins over its old data dir full-resyncs at the new term.
+Tolerance: exact.
 """
 
+import importlib
 import json
+import socket
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -166,3 +175,129 @@ def test_keyed_write_replays_on_promoted_follower(tmp_path):
             int(old_epoch.rsplit(".", 1)[1]) + 1
     finally:
         pair.close()
+
+
+def _dead_url():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return f"http://127.0.0.1:{s.getsockname()[1]}"
+
+
+def _promotion_window(pkg, tmp_path):
+    """A follower of `pkg` (its leader gone, no campaign of its own)
+    promoted at the next term with its state's `on_promote` held.  While
+    it is held, a candidate at a higher term and with a longer history
+    asks for its vote, the leader's silence past the TTL.  Returns the
+    epoch before, (role, epoch) read while `on_promote` is held, the
+    vote's answer, and (promote's result, role, epoch) after it ran."""
+    serve = importlib.import_module(f"{pkg}.server.state_server").serve
+    Durable = importlib.import_module(f"{pkg}.server.durability").DurableStore
+    Repl = importlib.import_module(f"{pkg}.server.replication").Replication
+    dead = _dead_url()
+    repl = Repl("r2", peers=[dead], replicate_from=dead, commit_quorum=1,
+                election_quorum=1, ttl=3600.0)
+    httpd, st = serve(port=0, durable=Durable(str(tmp_path / pkg)),
+                      replication=repl)
+    held, release = threading.Event(), threading.Event()
+    bump = st.on_promote
+
+    def held_on_promote():
+        held.set()
+        release.wait(30)
+        bump()
+    st.on_promote = held_on_promote
+    try:
+        old = st.epoch
+        result = []
+        t = threading.Thread(
+            target=lambda: result.append(repl.promote(repl.term + 1)))
+        t.start()
+        assert held.wait(30), "promote never reached on_promote"
+        time.sleep(0.2)
+        during = (repl.role, st.epoch)
+        repl._last_leader_ok = time.monotonic() - 2 * repl.ttl
+        vote = repl.handle_campaign({
+            "term": repl.term + 5, "last_seq": 10 ** 9,
+            "log_term": 10 ** 9, "candidate": "r9", "url": ""})
+        release.set()
+        t.join(30)
+        return old, during, vote, (result[0], repl.role, st.epoch)
+    finally:
+        release.set()
+        httpd.shutdown()
+        httpd.server_close()
+        repl.stop()
+
+
+def test_promotion_publishes_the_role_after_the_epoch(tmp_path):
+    old, during, vote, after = _promotion_window("volcano_tpu", tmp_path)
+    assert during == ("leader", old), \
+        "the reference no longer shows a leader with the old epoch"
+    assert not vote["granted"]
+    assert after == (True, "leader", after[2]) and after[2] != old
+    old, during, vote, after = _promotion_window("volcano_tpu_torch",
+                                                 tmp_path)
+    assert during[0] != "leader" and during[1] == old
+    # a promotion under way refuses votes as the leader it becomes does:
+    # it is never left half-promoted
+    assert not vote["granted"]
+    assert after == (True, "leader", after[2]) and after[2] != old
+    assert after[2].rsplit(".", 1)[0] == old.rsplit(".", 1)[0]
+
+
+def _add_pods(st, names):
+    from volcano_tpu_torch.api.pod import make_pod
+    for name in names:
+        pod = make_pod("t", requests={"cpu": 1})
+        pod.name, pod.namespace = name, "default"
+        st.cluster.add_pod(pod)
+    st.commit()
+
+
+def test_term_mismatch_forces_full_resync(tmp_path):
+    """A deposed leader that rejoins over its old data dir (a stale term
+    and a diverged tail it never shipped) full-resyncs from the promoted
+    leader's snapshot and discards that tail.  The wait reads what the
+    assertions read: the bootstrap is counted after the snapshot is
+    installed and the term persisted, so a wait on the pods and the term
+    alone can read the count before it moves."""
+    r1 = Replication("r1", commit_quorum=1)
+    h1, s1 = serve(port=0, durable=DurableStore(str(tmp_path / "da")),
+                   replication=r1)
+    url1 = f"http://127.0.0.1:{h1.server_address[1]}"
+    _add_pods(s1, [f"s{i}" for i in range(4)])
+    r2 = Replication("r2", peers=[url1], replicate_from=url1,
+                     commit_quorum=1)
+    h2, s2 = serve(port=0, durable=DurableStore(str(tmp_path / "db")),
+                   replication=r2)
+    h3 = r3 = None
+    try:
+        wait_for(lambda: len(s2.cluster.pods) == 4, 20,
+                 "the follower synced to the first leader")
+        # the first leader dies; the follower promotes first, so no
+        # in-flight poll can ship the diverged record below
+        h1.shutdown()
+        h1.server_close()
+        r1.stop()
+        assert r2.promote(r2.term + 1)
+        _add_pods(s1, ["diverged"])
+        s1.durable.close()
+        _add_pods(s2, [f"b{i}" for i in range(3)])
+        url2 = f"http://127.0.0.1:{h2.server_address[1]}"
+        r3 = Replication("r1", peers=[url2], replicate_from=url2,
+                         commit_quorum=1)
+        h3, s3 = serve(port=0, durable=DurableStore(str(tmp_path / "da")),
+                       replication=r3)
+        wait_for(lambda: r3.bootstraps >= 1 and r3.term == r2.term
+                 and len(s3.cluster.pods) == 7 and s3.epoch == s2.epoch,
+                 20, "the deposed leader full-resyncing at the new term")
+        assert "default/diverged" not in s3.cluster.pods
+        assert sorted(s3.cluster.pods) == sorted(s2.cluster.pods)
+    finally:
+        for h in (h3, h2):
+            if h is not None:
+                h.shutdown()
+                h.server_close()
+        for r in (r3, r2):
+            if r is not None:
+                r.stop()

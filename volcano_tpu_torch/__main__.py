@@ -355,8 +355,15 @@ def main(argv=None) -> int:
     import threading
 
     stop = threading.Event()
-    signal.signal(signal.SIGTERM, lambda *_: stop.set())
-    signal.signal(signal.SIGINT, lambda *_: stop.set())
+
+    def on_signal(*_):
+        stop.set()
+        if remote:
+            # a call retrying against a dead server stops at its next
+            # back-off instead of spending its whole retry budget
+            cluster.close()
+    signal.signal(signal.SIGTERM, on_signal)
+    signal.signal(signal.SIGINT, on_signal)
 
     if usage_source is not None:
         # one synchronous refresh so the first cycle sees real data

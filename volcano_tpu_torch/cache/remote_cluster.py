@@ -226,7 +226,9 @@ class RemoteCluster(Cluster):
                             route=path.partition("?")[0])
                 log.debug("wire %s %s failed (%s); retrying",
                           method, path, e)
-                time.sleep(_retry_sleep(delay, e, remain))
+                # close() (a SIGTERM's handler among its callers) cuts
+                # the back-off short and the next failure surfaces
+                self._stop.wait(_retry_sleep(delay, e, remain))
                 delay = min(delay * 2, RETRY_CAP_S)
 
     def _reroute(self, is_read: bool, e: Exception) -> None:

@@ -20,7 +20,6 @@ import traceback
 from typing import Dict
 
 import torch
-import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from volcano_tpu_torch.workloads import bootstrap, pipeline
@@ -221,7 +220,7 @@ def _dryrun_rank(rank: int, n: int, port: int, device: str, out) -> None:
         try:
             results = _matrix(n, device)
         finally:
-            dist.destroy_process_group()
+            bootstrap.shutdown()
         out.put(("ok", rank, results))
     except BaseException:  # reported to the parent, which raises
         out.put(("error", rank, traceback.format_exc()))

@@ -186,6 +186,7 @@ class Replication:
         # running concurrently with the fresh one — two tails would
         # double-apply shipped batches
         self._tail_gen = 0
+        self._promoting = False         # promote() between its two locks
         self._watchdog_thread: Optional[threading.Thread] = None
         # deterministic campaign jitter per replica (not wall-seeded:
         # two replicas must not campaign in lockstep)
@@ -435,9 +436,11 @@ class Replication:
         candidate = body.get("candidate", "")
         url = body.get("url", "")
         with self._lock:
-            if self.role == "leader":
+            if self.role == "leader" or self._promoting:
                 # a live leader never votes; a candidate with a higher
-                # term than a DEPOSED leader reaches it via watchdog
+                # term than a DEPOSED leader reaches it via watchdog.
+                # A promotion under way answers as the leader it is
+                # about to publish
                 return {"granted": False, "term": self.term,
                         "leader": self.self_url}
             silent = time.monotonic() - self._last_leader_ok
@@ -514,6 +517,7 @@ class Replication:
         st = self.state
         with self._lock:
             if self.term > term or self.role == "leader" or \
+                    self._promoting or \
                     (self.term == term and
                      self.voted_for not in ("", self.replica_id)):
                 log.warning("promotion at term %d ABANDONED (term "
@@ -526,7 +530,10 @@ class Replication:
                 self.term = term
                 self.log_term = term    # our appends write at it
                 self.voted_for = self.replica_id
-                self.role = "leader"
+                # the role is published below, once the epoch is
+                # bumped: a reader never sees a leader's role with the
+                # follower's epoch
+                self._promoting = True
                 self._tail_gen += 1     # retire any parked tail loop
                 self.proven = True
                 self.leader_url = self.self_url
@@ -542,8 +549,15 @@ class Replication:
                 self.role = "follower"
             self._export_role()
             return False
-        self._persist_term()
-        st.on_promote()
+        try:
+            self._persist_term()
+            st.on_promote()
+        finally:
+            # published even if the term or epoch write raised, as the
+            # reference's leader is: never left promoting
+            with self._lock:
+                self._promoting = False
+                self.role = "leader"
         metrics.inc("server_replication_promotions_total")
         self._export_role()
         log.warning("PROMOTED to leader at term %d (epoch %s, rv %d, "

@@ -23,11 +23,26 @@ one GPU per process (`cuda:LOCAL_RANK`, default `cuda:0`).  Unlike the
 reference, which skips `jax.distributed` for one process, it also forms
 a one-rank group then, so that the device mesh, the collective proof
 and the gradient reduction run the same code at every world size.
+
+`shutdown` ends the group and joins its worker threads while the
+interpreter is alive; `initialize` registers it to run at exit too.  A
+gloo group's worker thread (`pt_gloo_runloop`) drops its last finished
+collective a moment after the caller's wait returns, and dropping it
+releases the tensors it held, which takes the GIL.  If that happens
+while the interpreter finalizes, Python 3.12 ends the thread with
+`pthread_exit`, whose unwind crosses a noexcept frame of the loop:
+`std::terminate` ("terminate called without an active exception") and
+SIGABRT, after the rank's work is done.  `destroy_process_group` does
+not join those threads, and a DeviceMesh keeps its groups alive, so
+`shutdown` also drops the meshes' references to the destroyed groups
+and collects them: each group's destructor joins its threads.
 """
 
 from __future__ import annotations
 
+import atexit
 import datetime
+import gc
 import os
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
@@ -56,6 +71,8 @@ DEFAULT_COORDINATOR_PORT = 8476
 # how long a collective (the rendezvous included) may wait for a peer
 # before it raises, so that a lost rank fails the job instead of hanging it
 DEFAULT_TIMEOUT_S = 600.0
+
+_shutdown_at_exit = False      # `initialize` registered `shutdown`
 
 
 @dataclass
@@ -171,4 +188,34 @@ def initialize(environ=None, device=None,
             init_method=f"tcp://{info.coordinator_address}", **kwargs)
     else:
         dist.init_process_group(store=dist.HashStore(), **kwargs)
+    global _shutdown_at_exit
+    if not _shutdown_at_exit:
+        atexit.register(shutdown)
+        _shutdown_at_exit = True
     return info
+
+
+def _drop_group_refs(mesh) -> None:
+    """Remove the ProcessGroup objects a DeviceMesh keeps in its dict
+    attributes (its registry of groups by name)."""
+    for value in vars(mesh).values():
+        if isinstance(value, dict):
+            for key in [k for k, v in value.items()
+                        if isinstance(v, dist.ProcessGroup)]:
+                del value[key]
+
+
+def shutdown() -> None:
+    """Destroy the default group and every group formed from it, then
+    destroy the groups' objects so their worker threads are joined now,
+    while the interpreter is alive (the module docstring says why).
+    Safe to call twice, and without a group."""
+    from torch.distributed.device_mesh import DeviceMesh
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    for obj in gc.get_objects():
+        # type(), not isinstance: a lazy module among the objects warns
+        # when its __class__ is read
+        if issubclass(type(obj), DeviceMesh):
+            _drop_group_refs(obj)
+    gc.collect()

@@ -78,7 +78,7 @@ def run(environ=None) -> dict:
     try:
         return _train(info, env, device.type)
     finally:
-        dist.destroy_process_group()
+        bootstrap.shutdown()
 
 
 def _train(info: bootstrap.BootstrapInfo, env, device_type: str) -> dict:

@@ -55,14 +55,15 @@ scheduled under the default conf onto 1024 simulated HGX H100 hosts in
 32 fabrics until a cycle binds nothing, with each cycle's wall time and
 the invariants of what is bound; and a vcjob with the torch and svc job
 plugins scheduled onto this node and launched as the port's worker on
-cuda with the env the plugins injected; (15) `phase_wire`: the same
-fleet and backlog scheduled by the port's control plane as separate
-processes that meet only at the state server over HTTP (`python -m
+cuda with the env the plugins injected; (15) `phase_wire`: half that
+fleet and backlog (512 hosts, 64 vcjobs) scheduled by the port's
+control plane as separate processes that meet only at the state
+server over HTTP (`python -m
 volcano_tpu_torch.server` over a durable data dir with a bearer token,
 `python -m volcano_tpu_torch --components controllers` and `...
 --components scheduler --leader-elect`), this script as kubectl and as
-the kubelet: the invariants read back from the server beside
-phase_schedule's counts, a vcjob bound over the wire and run on cuda,
+the kubelet: the invariants read back from the server, a vcjob bound
+over the wire and run on cuda,
 the server's GPU guard refusing an overcommitting bind and a stale pod
 write, and a kill -9 of the server with its recovery (every acked bind
 kept, the clients resynced, the job still Running), each with its host
@@ -73,17 +74,35 @@ one pod of eight fills three research-only fabrics whose jobs finished
 (the backlog runs at its gang floor, which preemption never breaks),
 then a PriorityClass above both, a prod gang of 32 whole hosts held to
 one IB fabric and 8 8-GPU single-host jobs in research, then prod's
-weight raised from 2 to 3 and 8 such jobs in prod -- with evictions and
-GPUs taken back by action, each cycle's ms by action, each
-preemptor's submit-to-bound s and the invariants read after every
-cycle; (17) `phase_failover`: a vcjob on this card trains the worker's
+weight raised from 2 to 3 and 8 such jobs in prod; then, with
+gangreclaim on the conf and the weights turned to research 3, prod 1,
+a research gang of 32 hosts held to one NVLink domain that prod's
+fillers hold -- with evictions and GPUs taken back by action, each
+cycle's ms by action, each preemptor's submit-to-bound s and the
+invariants read after every cycle; (17) `phase_failover`: a vcjob on this card trains the worker's
 tiny f32 model on cuda and checkpoints every 2 steps, the node agent
 reports the card's host Failed over its K ticks, the failover
 controller drains the job with one restart, quarantines the NVLink
 domain and stamps the last checkpoint step, and once the host is
 healthy and the quarantine lifted the job rebinds to the card, where
 the port's worker resumes at the stamped step; its loss is held
-against the uninterrupted run's (1e-4 relative).
+against the uninterrupted run's (1e-4 relative); (18) `phase_cli`: a
+deploy bundle rendered by `python -m volcano_tpu_torch.bundle` for 4 IB
+fabrics of 32 HGX H100 hosts, its server, controllers and scheduler
+started from its units, its cluster-init.sh registering the hosts
+through the port's vtpctl, then a queue, a one-GPU job from YAML
+pinned to this card, a 16-host gang held to one fabric, the views,
+vsuspend/vresume and vcancel, each a `python -m
+volcano_tpu_torch.cli.vtpctl --server` call; the card job's pod run as
+the worker on cuda; the live /metrics held to the bundle's label
+schema; (19) `phase_federation`: a global state server, two regional
+GPU planes (`local` with this machine's node, `remote` cheaper) and
+`python -m volcano_tpu_torch.federation.router` as processes; 12
+16-host gangs and a one-GPU job on this card admitted across both,
+the card job's steps folded into the router's learned goodput, then
+remote's server killed with SIGKILL: the loss detected, its gangs
+requeued with the attempt bumped and rebound in local as far as it
+has room, no acked step lost.
 
 The kernel phases (3)-(5) also hold and time the kernels at the shapes
 beyond d in {128, 256} and t % 128 == 0 (d = 384 and 512 on the
@@ -104,12 +123,14 @@ import json
 import math
 import os
 import re
+import shlex
 import shutil
 import signal
 import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import torch
@@ -1615,8 +1636,8 @@ def agent_verdict(cluster, node):
     return out
 
 
-def backlog_jobs():
-    """SCHED_JOBS vcjobs over two queues in SCHED_MIX's turn: single-host
+def backlog_jobs(n=SCHED_JOBS):
+    """`n` vcjobs over two queues in SCHED_MIX's turn: single-host
     jobs of 1 and 8 GPUs and gangs of 4, 16 and 32 whole hosts, every
     third gang with a hard topology capped at the IB fabric's tier."""
     from volcano_tpu_torch.api.pod import Container, Pod
@@ -1624,7 +1645,7 @@ def backlog_jobs():
     from volcano_tpu_torch.api.resource import GPU
     from volcano_tpu_torch.api.vcjob import TaskSpec, VCJob
     jobs, gangs = [], 0
-    for i in range(SCHED_JOBS):
+    for i in range(n):
         pods, gpus = SCHED_MIX[i % len(SCHED_MIX)]
         hard = False
         if pods > 1:
@@ -1802,6 +1823,8 @@ class PodWorker:
         env.update({k: str(v) for k, v in extra.items()})
         self.out = tempfile.TemporaryFile("w+")
         self.err = tempfile.TemporaryFile("w+")
+        # when a watcher saw the process exit (wait() may come later)
+        self.exited = None
         self.t1 = time.monotonic()
         self.proc = subprocess.Popen(
             [sys.executable, *argv], env=env, cwd=REPO, stdout=self.out,
@@ -1816,7 +1839,7 @@ class PodWorker:
         except subprocess.TimeoutExpired:
             self.kill()
             raise AssertionError("the scheduled worker timed out")
-        launch_s = time.monotonic() - self.t1
+        launch_s = (self.exited or time.monotonic()) - self.t1
         self.out.seek(0)
         self.err.seek(0)
         return self.proc.returncode, self.out.read(), self.err.read(), \
@@ -1872,14 +1895,14 @@ def scheduled_worker(cluster, mgr, sched, node, bootstrap):
                 injected=injected, result=out)
 
 
-def gpu_fleet(node):
-    """SCHED_HOSTS HGX H100 hosts in IB fabrics of SCHED_FABRIC_HOSTS,
-    beside this machine's node, with the hypernode tree discovered."""
+def gpu_fleet(node, hosts=SCHED_HOSTS):
+    """`hosts` HGX H100 hosts in IB fabrics of SCHED_FABRIC_HOSTS, beside
+    this machine's node, with the hypernode tree discovered."""
     from volcano_tpu_torch.simulator import make_gpu_cluster
     return make_gpu_cluster(
-        [(f"hgx{i:04d}", "hgx-h100-8") for i in range(SCHED_HOSTS)],
+        [(f"hgx{i:04d}", "hgx-h100-8") for i in range(hosts)],
         ib_fabrics={f"hgx{i:04d}": f"su{i // SCHED_FABRIC_HOSTS:02d}"
-                    for i in range(SCHED_HOSTS)},
+                    for i in range(hosts)},
         extra_nodes=[node])
 
 
@@ -1919,6 +1942,10 @@ WIRE_POLL_S = 0.2       # kubectl's (and the kubelet's) polling period
 WIRE_BOOT_S = 120       # a server boot, seed or WAL replay included
 WIRE_TIMEOUT_S = 240    # each wait for the plane to converge
 WIRE_GRACE_S = 5.0      # SIGTERM grace before SIGKILL at teardown
+# the wire phase's depth: half phase_schedule's fleet and backlog, in
+# the same fabrics and mix, which keeps the script near its time budget
+WIRE_HOSTS = SCHED_HOSTS // 2
+WIRE_JOBS = SCHED_JOBS // 2
 
 
 class WirePlane:
@@ -2084,7 +2111,7 @@ def wire_backlog(plane, kubectl, node, smi):
     every pod; the kubelet's ticks until two scheduler cycles in a row
     bind nothing; the invariants read back from the server."""
     jobs, t0 = [], time.monotonic()
-    for job in backlog_jobs():
+    for job in backlog_jobs(WIRE_JOBS):
         jobs.append(kubectl.add_vcjob(job))
     submit_s = time.monotonic() - t0
     uids, want = {j.uid for j in jobs}, sum(j.total_replicas() for j in jobs)
@@ -2335,10 +2362,10 @@ def wire_crash(plane, kubectl, node, e2e, smi):
                 resyncs=modes, after_restart_bound_s=probe_s)
 
 
-def phase_wire(bootstrap, smi, sched):
+def phase_wire(bootstrap, smi):
     """The port's control plane as separate processes that meet only at
-    the state server: the same fleet and backlog as phase_schedule
-    scheduled over HTTP, a vcjob run on this card, the server's GPU
+    the state server: half phase_schedule's fleet and backlog (WIRE_HOSTS,
+    WIRE_JOBS) scheduled over HTTP, a vcjob run on this card, the server's GPU
     guard, and a kill -9 of the server with the plane's recovery."""
     import pickle
     from volcano_tpu_torch.api.queue import Queue
@@ -2348,7 +2375,7 @@ def phase_wire(bootstrap, smi, sched):
     plane, kubectl, e2e = WirePlane(workdir), None, None
     try:
         t0 = time.monotonic()
-        fleet = gpu_fleet(node)
+        fleet = gpu_fleet(node, WIRE_HOSTS)
         for name, weight in (("research", 1), ("prod", 2)):
             fleet.add_queue(Queue(name=name, weight=weight))
         seed = os.path.join(workdir, "seed.pkl")
@@ -2359,30 +2386,19 @@ def phase_wire(bootstrap, smi, sched):
         plane.start_server(seed)
         boot_s = time.monotonic() - t0
         kubectl = RemoteCluster(plane.url, token=plane.token)
-        if len(kubectl.nodes) != SCHED_HOSTS + 1:
+        if len(kubectl.nodes) != WIRE_HOSTS + 1:
             raise AssertionError(f"the server holds {len(kubectl.nodes)} "
                                  "nodes")
-        log(f"[wire] {SCHED_HOSTS} hosts + this node seeded in {seed_s:.3f} "
+        log(f"[wire] {WIRE_HOSTS} hosts + this node seeded in {seed_s:.3f} "
             f"s; the state server up over {plane.data_dir} in {boot_s:.3f} "
             f"s ({smi}; host times)")
         plane.start_client("controllers", "--components", "controllers",
                            "--controllers", "job,queue")
         backlog = wire_backlog(plane, kubectl, node, smi)
-        local = sched["backlog"]
-        same = all(backlog[k] == local[k] for k in (
-            "pods_bound", "jobs_placed", "gpus_bound", "hard_gangs_placed"))
         log(f"[wire] bound over the wire: {backlog['pods_bound']} pods, "
             f"{backlog['jobs_placed']} jobs, {backlog['gpus_bound']:g} GPUs, "
-            f"{backlog['hard_gangs_placed']} hard gangs; phase_schedule in "
-            f"process: {local['pods_bound']} pods, {local['jobs_placed']} "
-            f"jobs, {local['gpus_bound']:g} GPUs, "
-            f"{local['hard_gangs_placed']} hard gangs")
-        log("[wire] the same counts as phase_schedule" if same else
-            "[wire] the counts differ from phase_schedule's: over the wire "
-            "the controller process mints the pods' uids (phase_schedule "
-            "minted them in this process), and the scheduler breaks ties "
-            "between equal jobs and nodes by uid, so an equally valid "
-            "packing can follow; both kept every invariant")
+            f"{backlog['hard_gangs_placed']} hard gangs, on {WIRE_HOSTS} "
+            f"hosts (half phase_schedule's fleet and backlog)")
         e2e = wire_end_to_end(plane, kubectl, node, bootstrap, smi)
         guard = wire_guard(plane, kubectl, node, e2e["pod"], smi)
         crash = wire_crash(plane, kubectl, node, e2e, smi)
@@ -2402,7 +2418,7 @@ def phase_wire(bootstrap, smi, sched):
         e2e.pop(k)
     return dict(processes=["server", "controllers", "scheduler"],
                 seed_s=seed_s, boot_s=boot_s, backlog=backlog,
-                same_counts_as_phase_schedule=same, end_to_end=e2e,
+                hosts=WIRE_HOSTS, jobs=WIRE_JOBS, end_to_end=e2e,
                 guard=guard, crash=crash)
 
 
@@ -2573,8 +2589,8 @@ def preempt_invariants(cluster, evicted, before, fleet_gpus):
     its minAvailable, no critical pod evicted, every preempt (and
     gangpreempt) victim of lower priority than its preemptor, every
     reclaim victim from a queue above its deserved share (by weight)
-    when the cycle began, hard gangs inside one IB fabric (one NVLink
-    domain at tier 1), no node over its GPUs."""
+    when the cycle began (gangreclaim's too), hard gangs inside one IB
+    fabric (one NVLink domain at tier 1), no node over its GPUs."""
     from volcano_tpu_torch.api.resource import GPU, Resource
     from volcano_tpu_torch.api.types import GPU_CLIQUE_LABEL, TaskStatus
     from volcano_tpu_torch.controllers.hypernode import IB_FABRIC_LABEL
@@ -2592,6 +2608,14 @@ def preempt_invariants(cluster, evicted, before, fleet_gpus):
         if pod_job is None:
             continue
         vprio = prio.get(pod_job.priority_class, 0)
+        if evict_action(cluster, reason, owner) == "gangreclaim":
+            q = pod_job.queue
+            share = fleet_gpus * weights.get(q, 0) / sum(weights.values())
+            if before.get(q, 0.0) <= share:
+                broken.append(f"{key} gang-reclaimed from {q} at "
+                              f"{before.get(q, 0.0):g} GPUs, deserved "
+                              f"{share:g}")
+            continue
         for prefix, action in EVICT_REASONS[:2]:
             if reason.startswith(prefix):
                 # the preemptor: a task's key (preempt) or a job's
@@ -2641,6 +2665,21 @@ def preempt_invariants(cluster, evicted, before, fleet_gpus):
     return broken
 
 
+def evict_action(cluster, message, owner):
+    """The action an eviction's message names; gangpreempt and
+    gangreclaim share theirs ("gang-preempted for <job>"), and
+    gangreclaim's preemptor is of another queue than its victim."""
+    action = next((a for pre, a in EVICT_REASONS
+                   if message.startswith(pre)), "other")
+    if action == "gangpreempt":
+        preemptor = cluster.vcjobs.get(message[len(EVICT_REASONS[0][0]):])
+        victim = next((j for j in cluster.vcjobs.values()
+                       if j.uid == owner), None)
+        if preemptor and victim and preemptor.queue != victim.queue:
+            return "gangreclaim"
+    return action
+
+
 def preempt_cycle(cluster, mgr, sched, hard_keys, seen, fleet_gpus, tally):
     """One controller sync, scheduling cycle and tick: its evictions by
     action (added to `tally`), its spans, and the invariants read after
@@ -2660,8 +2699,7 @@ def preempt_cycle(cluster, mgr, sched, hard_keys, seen, fleet_gpus, tally):
             continue
         pod = cluster.pods.get(key)
         evicted.append((key, message, pod.owner if pod else ""))
-        action = next((a for pre, a in EVICT_REASONS
-                       if message.startswith(pre)), "other")
+        action = evict_action(cluster, message, pod.owner if pod else "")
         by_action[action] = by_action.get(action, 0) + 1
         tally["evictions"][action] = tally["evictions"].get(action, 0) + 1
         if pod is not None:
@@ -2802,6 +2840,8 @@ def phase_preempt(plane, smi):
         f"arrived), the NVLink gang in {domains[0]}; all {len(critical)} "
         f"critical pods still bound, {spot_taken} other spot pods evicted; "
         f"GPUs by queue {queue_gpus(cluster)} ({smi}; host times)")
+    round3 = reclaim_round(cluster, mgr, sched, pre, hard_keys, seen,
+                           fleet_gpus, tally, smi)
     return dict(spot_fabrics=research_only, spot_pods=spot_pods,
                 critical_pods=len(critical), critical_kept=len(kept),
                 spot_pods_evicted=spot_taken, dgx_domain=DGX_DOMAIN,
@@ -2809,7 +2849,98 @@ def phase_preempt(plane, smi):
                 setup=setup, prod_fabric=prod_fabric, cycles=cycles,
                 evictions=tally["evictions"], gpus_taken_back=tally["gpus"],
                 submit_to_bound_s=bound_s, gang_fabric=fabrics[0],
-                nvl_gang_domain=domains[0])
+                nvl_gang_domain=domains[0], round3=round3)
+
+
+# round 3: the conf with gangreclaim beside gangpreempt, and the queues'
+# weights turned so that research is owed what prod holds
+RECLAIM_ACTIONS = ["enqueue", "allocate", "elastic", "gangpreempt",
+                   "gangreclaim", "preempt", "reclaim", "backfill"]
+RECLAIM_WEIGHTS = {"research": 3, "prod": 1}
+
+
+def reclaim_round(cluster, mgr, sched, pre, hard_keys, seen, fleet_gpus,
+                  tally, smi):
+    """Round 3, gangreclaim: the prod gang in DGX_DOMAIN finishes and
+    prod's low-priority fillers, which gangpreempt evicted in round 1,
+    take the domain back.  The queues' weights turn (RECLAIM_WEIGHTS),
+    so prod stands above its deserved share, and gangreclaim joins the
+    conf.  Research submits a gang of DGX_DOMAIN's 32 hosts held to one
+    NVLink domain at its own priority: allocate finds no domain free,
+    gangpreempt no research work below it there, preempt and reclaim
+    skip hard-topology gangs, so only gangreclaim can free the domain.
+    Cycled until the gang is bound, with the invariants read after each
+    cycle.  Returns gangreclaim's evictions, the GPUs they freed and
+    the gang's submit-to-bound s."""
+    from volcano_tpu_torch.api.podgroup import NetworkTopologySpec
+    from volcano_tpu_torch.api.types import (GPU_CLIQUE_LABEL,
+                                             NetworkTopologyMode, TaskStatus)
+    nvl = cluster.vcjobs["default/hp-nvl"]
+    finish_jobs(cluster, {nvl.uid})
+    fillers = [j for j in cluster.vcjobs.values()
+               if j.name.startswith("dgx-low")]
+
+    def bound_nodes(jobs):
+        uids = {j.uid for j in jobs}
+        return {p.node_name for p in cluster.pods.values()
+                if p.owner in uids and p.node_name and
+                p.phase in (TaskStatus.BOUND, TaskStatus.RUNNING)}
+    refill = []
+    while len(bound_nodes(fillers)) < dgx_hosts():
+        if len(refill) == PREEMPT_MAX_CYCLES:
+            raise AssertionError(f"the fillers hold "
+                                 f"{len(bound_nodes(fillers))} hosts of "
+                                 f"{DGX_DOMAIN} after {len(refill)} cycles")
+        refill.append(preempt_cycle(cluster, mgr, sched, hard_keys, seen,
+                                    fleet_gpus, tally))
+    for name, weight in RECLAIM_WEIGHTS.items():
+        cluster.queues[name].weight = weight
+    sched.conf.actions = list(RECLAIM_ACTIONS)
+    held = queue_gpus(cluster)
+    deserved = {q: fleet_gpus * w / sum(RECLAIM_WEIGHTS.values())
+                for q, w in RECLAIM_WEIGHTS.items()}
+    log(f"[preempt] round 3: hp-nvl finished; the fillers took all "
+        f"{dgx_hosts()} hosts of {DGX_DOMAIN} back in {len(refill)} "
+        f"cycle(s); weights {RECLAIM_WEIGHTS}: GPUs by queue {held}, "
+        f"deserved by weight {deserved}")
+    before = {a: tally["evictions"].get(a, 0) for a in ("gangreclaim",)}
+    gpus_before = tally["gpus"].get("gangreclaim", 0.0)
+    t_submit = time.monotonic()
+    gang = cluster.add_vcjob(gpu_job(
+        "rc-nvl", "research", dgx_hosts(), "",
+        NetworkTopologySpec(NetworkTopologyMode.HARD, 1), dgx=True))
+    hard_keys.add(gang.key)
+    cycles, bound_s = [], None
+    while bound_s is None:
+        if len(cycles) == PREEMPT_MAX_CYCLES:
+            raise AssertionError(
+                f"the research NVLink gang is still pending after "
+                f"{len(cycles)} cycles; evictions {tally['evictions']}")
+        cycles.append(preempt_cycle(cluster, mgr, sched, hard_keys, seen,
+                                    fleet_gpus, tally))
+        c = cycles[-1]
+        if len(bound_nodes([gang])) >= gang.min_available:
+            bound_s = time.monotonic() - t_submit
+        log(f"[preempt] round 3, cycle {len(cycles)}: controllers "
+            f"{c['sync_ms']:.3f} ms, scheduler {c['cycle_ms']:.3f} ms "
+            f"(actions {c['actions_ms']}), evictions {c['evicted']}; "
+            f"GPUs by queue before {c['queue_gpus_before']}; invariants "
+            "hold")
+    evictions = tally["evictions"].get("gangreclaim", 0) - \
+        before["gangreclaim"]
+    freed = tally["gpus"].get("gangreclaim", 0.0) - gpus_before
+    domains = sorted({cluster.nodes[n].labels.get(GPU_CLIQUE_LABEL)
+                      for n in bound_nodes([gang])})
+    log(f"[preempt] round 3: gangreclaim evicted {evictions} prod pod(s), "
+        f"{freed:g} GPUs freed; the research gang bound in {domains} "
+        f"{bound_s:.3f} s after it arrived ({len(cycles)} cycle(s)); GPUs "
+        f"by queue {queue_gpus(cluster)} ({smi}; host times)")
+    if not evictions or domains != [DGX_DOMAIN]:
+        raise AssertionError("the research gang bound without gangreclaim")
+    return dict(refill_cycles=len(refill), weights=RECLAIM_WEIGHTS,
+                queue_gpus_before=held, evictions=evictions,
+                gpus_freed=freed, submit_to_bound_s=bound_s,
+                cycles=cycles, domain=domains[0])
 
 
 # -- phase_failover: a failed NVLink domain drained and resumed ---------
@@ -3023,6 +3154,679 @@ def phase_failover(bootstrap, smi):
                 fault_to_line_s=t_resumed - t_fault)
 
 
+# -- phase_cli: the operator's path through the port's CLI ---------------
+
+CLI_FABRICS = 4            # IB fabrics of the rendered bundle's topology
+CLI_FABRIC_HOSTS = 32      # HGX H100 hosts (one NVLink domain each) a fabric
+CLI_GANG_HOSTS = 16        # the gang held to one fabric
+CLI_QUEUE = "cli"
+CLI_CALL_S = 120           # a vtpctl call's limit
+CARD_MANIFEST = """\
+kind: Job
+metadata: {{name: cli-card}}
+spec:
+  minAvailable: 1
+  queue: {queue}
+  plugins: {{torch: [], svc: []}}
+  tasks:
+    - name: worker
+      replicas: 1
+      template:
+        spec:
+          containers:
+            - name: main
+              resources:
+                requests: {{cpu: 4, nvidia.com/gpu: 1}}
+          nodeSelector: {{{hostname_label}: {host}}}
+          tolerations: [{{key: {taint}, operator: Exists}}]
+"""
+GANG_MANIFEST = """\
+kind: Job
+metadata: {{name: cli-gang}}
+spec:
+  minAvailable: {hosts}
+  queue: {queue}
+  networkTopology: {{mode: hard, highestTierAllowed: 2}}
+  tasks:
+    - name: worker
+      replicas: {hosts}
+      template:
+        spec:
+          containers:
+            - name: main
+              resources:
+                requests: {{cpu: 8, memory: 32Gi, nvidia.com/gpu: 8}}
+"""
+
+
+def cli_topology():
+    """The bundle's --topology: CLI_FABRICS fabrics of CLI_FABRIC_HOSTS
+    hgx-h100-8 NVLink domains, NAME:KIND@FABRIC."""
+    return ",".join(f"c{f}h{i:02d}:hgx-h100-8@cli-ib{f}"
+                    for f in range(CLI_FABRICS)
+                    for i in range(CLI_FABRIC_HOSTS))
+
+
+def unit_argv(path, **subst):
+    """A rendered systemd unit's ExecStart as this interpreter's argv
+    (without the interpreter), systemd's specifiers given by `subst`."""
+    with open(path) as f:
+        cmd = next(line for line in f.read().splitlines()
+                   if line.startswith("ExecStart="))[len("ExecStart="):]
+    for key, value in subst.items():
+        cmd = cmd.replace(key, value)
+    argv = shlex.split(cmd)
+    if argv[0] != "python3":
+        raise AssertionError(f"{path} does not run a module: {cmd}")
+    return argv[1:]
+
+
+def port_env():
+    return dict(os.environ, PYTHON=sys.executable,
+                PYTHONPATH=os.pathsep.join(
+                    p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+
+
+def cells(text):
+    """A vtpctl table as rows of cells."""
+    return [re.split(r"\s{2,}", line.strip())
+            for line in text.splitlines() if line.strip()]
+
+
+def metrics_text(url):
+    import urllib.request
+    with urllib.request.urlopen(url + "/metrics", timeout=10) as r:
+        return r.read().decode()
+
+
+class Vtpctl:
+    """`python -m volcano_tpu_torch.cli.vtpctl --server URL` as the
+    operator runs it, with each call's wall s."""
+
+    def __init__(self, plane):
+        self.plane, self.calls = plane, []
+
+    def __call__(self, *args):
+        t0 = time.monotonic()
+        res = subprocess.run(
+            [sys.executable, "-m", "volcano_tpu_torch.cli.vtpctl",
+             "--server", self.plane.url, "--token-file",
+             self.plane.token_file, *args], cwd=REPO, env=port_env(),
+            capture_output=True, text=True, timeout=CLI_CALL_S)
+        wall = time.monotonic() - t0
+        self.calls.append((" ".join(args), round(wall, 3)))
+        if res.returncode != 0:
+            raise AssertionError(f"vtpctl {' '.join(args)} exited "
+                                 f"{res.returncode}:\n{res.stderr[-2000:]}")
+        return res.stdout
+
+
+def fabric_of(kubectl, pods):
+    from volcano_tpu_torch.controllers.hypernode import IB_FABRIC_LABEL
+    return sorted({kubectl.nodes[p.node_name].labels.get(IB_FABRIC_LABEL)
+                   for p in pods})
+
+
+def phase_cli(bootstrap, smi):
+    """The operator's path on this machine: a bundle rendered by `python
+    -m volcano_tpu_torch.bundle` for CLI_FABRICS IB fabrics of
+    CLI_FABRIC_HOSTS HGX H100 hosts; the state server, the controllers
+    and the scheduler started from its units (its token, its scheduler
+    conf); this machine's node seeded and verified by the node agent;
+    the bundle's cluster-init.sh registering the hosts through the
+    port's vtpctl; then every step through `python -m
+    volcano_tpu_torch.cli.vtpctl --server`: a queue, a one-GPU job from
+    YAML pinned to this card, a gang of CLI_GANG_HOSTS whole hosts held
+    to one IB fabric, the views, vsuspend and vresume of the gang, and
+    vcancel.  The card job's pod runs as the port's worker on cuda; the
+    scheduler's and the server's live /metrics hold to the bundle's
+    label schema."""
+    from volcano_tpu_torch.agent.agent import GPU_HEALTHY_LABEL, NodeAgent
+    from volcano_tpu_torch.agent.collect import (CompositeUsageProvider,
+                                                 GpuChipCollector)
+    from volcano_tpu_torch.agent.handlers import GpuHealthHandler
+    from volcano_tpu_torch.analysis.schema import check_exposition
+    from volcano_tpu_torch.api.types import TaskStatus
+    from volcano_tpu_torch.cache.remote_cluster import RemoteCluster
+    node = local_node()
+    n_gpus = torch.cuda.device_count()
+    workdir = tempfile.mkdtemp(prefix="vtp-cli-")
+    bundle = os.path.join(workdir, "bundle")
+    plane, kubectl, worker = WirePlane(workdir), None, None
+    try:
+        port = free_port()
+        t0 = time.monotonic()
+        res = subprocess.run(
+            [sys.executable, "-m", "volcano_tpu_torch.bundle", "--out",
+             bundle, "--topology", cli_topology(), "--port", str(port),
+             "--data-dir", os.path.join(workdir, "data")],
+            cwd=REPO, env=port_env(), capture_output=True, text=True,
+            timeout=CLI_CALL_S)
+        if res.returncode != 0:
+            raise AssertionError(f"the bundle did not render:\n{res.stderr}")
+        render_s = time.monotonic() - t0
+        # the plane is the bundle's: its port, token and data dir
+        plane.port, plane.url = port, f"http://127.0.0.1:{port}"
+        plane.token_file = os.path.join(bundle, "token")
+        with open(plane.token_file) as f:
+            plane.token = f.read().strip()
+        units = os.path.join(bundle, "systemd")
+        t0 = time.monotonic()
+        plane.spawn("server", *unit_argv(
+            os.path.join(units, "volcano-tpu-server.service")))
+        plane.until(plane.healthy, WIRE_BOOT_S, "the state server's /healthz")
+        boot_s = time.monotonic() - t0
+        kubectl = RemoteCluster(plane.url, token=plane.token)
+        kubectl.add_node(node)
+        # this machine's node agent: the GPU chip collector and health
+        # handler, reporting over the wire
+        agent = NodeAgent(kubectl, node.name, provider=CompositeUsageProvider(
+            [GpuChipCollector()]), handlers=[GpuHealthHandler])
+        for _ in range(GpuHealthHandler.FAIL_SYNCS):
+            agent.sync()
+        plane.until(lambda: kubectl.nodes.get(node.name) is not None and
+                    kubectl.nodes[node.name].labels.get(GPU_HEALTHY_LABEL)
+                    == "true", WIRE_TIMEOUT_S, "the card's health label")
+        for role in ("controllers", "scheduler"):
+            argv = unit_argv(os.path.join(units, f"volcano-tpu-{role}.service"),
+                             **{"%H": "cli-s1"})
+            plane.metrics_port[role] = int(
+                argv[argv.index("--metrics-port") + 1])
+            # the units' period (1 s) shortened to the wire phase's
+            plane.spawn(role, *argv, "--period", str(WIRE_PERIOD_S))
+        t0 = time.monotonic()
+        res = subprocess.run(["sh", os.path.join(bundle, "cluster-init.sh")],
+                             cwd=REPO, env=port_env(), capture_output=True,
+                             text=True, timeout=300)
+        if res.returncode != 0:
+            raise AssertionError(f"cluster-init.sh exited {res.returncode}:"
+                                 f"\n{res.stderr[-2000:]}")
+        init_s = time.monotonic() - t0
+        hosts = CLI_FABRICS * CLI_FABRIC_HOSTS
+        plane.until(lambda: len(kubectl.nodes) == hosts + 1, WIRE_TIMEOUT_S,
+                    "the registered hosts")
+        log(f"[cli] bundle rendered in {render_s:.3f} s ({hosts} hosts in "
+            f"{CLI_FABRICS} fabrics); the server up from its unit in "
+            f"{boot_s:.3f} s; cluster-init.sh registered {hosts} hosts in "
+            f"{init_s:.3f} s ({smi}; host times)")
+
+        vtpctl = Vtpctl(plane)
+        vtpctl("queue", "create", "-N", CLI_QUEUE, "--weight", "1")
+        manifests = {}
+        for name, text in (("card", CARD_MANIFEST.format(
+                queue=CLI_QUEUE, hostname_label=HOSTNAME_LABEL,
+                host=node.name, taint=LOCAL_TAINT)),
+                ("gang", GANG_MANIFEST.format(queue=CLI_QUEUE,
+                                              hosts=CLI_GANG_HOSTS))):
+            manifests[name] = os.path.join(workdir, f"{name}.yaml")
+            with open(manifests[name], "w") as f:
+                f.write(text)
+        submitted = {}
+        for name in ("card", "gang"):
+            submitted[name] = time.monotonic()
+            vtpctl("job", "create", "-f", manifests[name])
+        want = {"card": 1, "gang": CLI_GANG_HOSTS}
+
+        def bound(name):
+            job = kubectl.vcjobs.get(f"default/cli-{name}")
+            return [] if job is None else [
+                p for p in kubectl.pods.values()
+                if p.owner == job.uid and p.node_name and
+                p.phase in (TaskStatus.BOUND, TaskStatus.RUNNING)]
+        bound_s = {}
+
+        def all_bound():
+            for name in want:
+                if name not in bound_s and len(bound(name)) == want[name]:
+                    bound_s[name] = time.monotonic() - submitted[name]
+            return len(bound_s) == len(want)
+        plane.until(all_bound, WIRE_TIMEOUT_S, "both jobs' binds")
+        vtpctl("tick", "--cycles", "1")            # the kubelet
+        plane.until(lambda: all(
+            kubectl.vcjobs[f"default/cli-{n}"].phase.value == "Running"
+            for n in want), WIRE_TIMEOUT_S, "both jobs Running")
+        (card_pod,) = bound("card")
+        worker = PodWorker(card_pod, node, bootstrap)
+
+        jobs = {r[1]: r for r in cells(vtpctl("job", "list"))[1:]}
+        view = json.loads(vtpctl("job", "view", "-N", "cli-gang"))
+        gang_nodes = {p["node"] for p in view["pods"]}
+        gang_fabrics = fabric_of(kubectl, bound("gang"))
+        nodes = {r[0]: r for r in cells(vtpctl("node", "list"))}
+        header = nodes.pop("NAME")
+        card_row = dict(zip(header, nodes[node.name]))
+        slices = cells(vtpctl("slices"))
+        shapes = {}
+        for row in slices[1:]:
+            shapes[row[1]] = shapes.get(row[1], 0) + 1
+        explain = vtpctl("explain", "cli-gang")
+        fleet = vtpctl("fleet")
+        log(f"[cli] job list {[jobs[k][:4] for k in sorted(jobs)]}; the gang's "
+            f"{len(gang_nodes)} pods in fabric(s) {gang_fabrics}; the card's "
+            f"node {card_row}; slices: {len(slices) - 1} NVLink domains by "
+            f"shape {shapes}; explain: {explain.splitlines()[:2]}; fleet: "
+            f"{len(fleet.splitlines())} line(s)")
+        if jobs["cli-card"][2:4] != ["Running", "1/1"] or \
+                jobs["cli-gang"][2:4] != ["Running",
+                                          f"{CLI_GANG_HOSTS}/{CLI_GANG_HOSTS}"]:
+            raise AssertionError(f"job list: {jobs}")
+        if len(gang_nodes) != CLI_GANG_HOSTS or len(gang_fabrics) != 1:
+            raise AssertionError(f"the gang spans {gang_fabrics}")
+        if card_row["GPUS"] != f"1/{n_gpus}" or card_row["GPU-OK"] != "true":
+            raise AssertionError(f"the card's node row: {card_row}")
+        want_shapes = {"1x8": hosts}
+        want_shapes[f"1x{n_gpus}"] = want_shapes.get(f"1x{n_gpus}", 0) + 1
+        if shapes != want_shapes:
+            raise AssertionError(f"slices: {shapes}, want {want_shapes}")
+
+        t0 = time.monotonic()
+        vtpctl("vsuspend", "-N", "cli-gang")
+        plane.until(lambda: not bound("gang"), WIRE_TIMEOUT_S,
+                    "the suspended gang's pods gone")
+        suspend_s = time.monotonic() - t0
+        suspended = kubectl.vcjobs["default/cli-gang"].phase.value
+        t0 = time.monotonic()
+        vtpctl("vresume", "-N", "cli-gang")
+        plane.until(lambda: len(bound("gang")) == CLI_GANG_HOSTS,
+                    WIRE_TIMEOUT_S, "the resumed gang's binds")
+        resume_s = time.monotonic() - t0
+        resumed_fabrics = fabric_of(kubectl, bound("gang"))
+        log(f"[cli] vsuspend: the gang's pods gone in {suspend_s:.3f} s "
+            f"(phase {suspended}); vresume: {CLI_GANG_HOSTS} pods bound again "
+            f"in {resume_s:.3f} s, fabric(s) {resumed_fabrics}")
+        if len(resumed_fabrics) != 1:
+            raise AssertionError("the resumed gang spans fabrics")
+
+        injected, launch_s, line = worker.result("[cli] card job:")
+        violations = {}
+        for name in ("scheduler", "server"):
+            url = plane.url if name == "server" else \
+                f"http://127.0.0.1:{plane.metrics_port[name]}"
+            text = metrics_text(url)
+            violations[name] = check_exposition(text)
+            log(f"[cli] {name} /metrics: {len(text.splitlines())} lines, "
+                f"{len(violations[name])} schema violation(s) "
+                f"{violations[name][:5]}")
+        if any(violations.values()):
+            raise AssertionError("the live /metrics break the label schema")
+        vtpctl("vcancel", "-N", "cli-gang")
+        vtpctl("vcancel", "-N", "cli-card")
+        left = cells(vtpctl("vjobs"))[1:]
+        if left:
+            raise AssertionError(f"jobs left after vcancel: {left}")
+    finally:
+        if worker is not None:
+            worker.kill()
+        if kubectl is not None:
+            kubectl.close()
+        plane.stop()
+    shutil.rmtree(workdir, ignore_errors=True)
+    log(f"[cli] vtpctl calls (wall s): {vtpctl.calls}; submit -> "
+        f"bound s {json.dumps({k: round(v, 3) for k, v in bound_s.items()})}; "
+        f"the card job's pod: launch -> the worker's line {launch_s:.3f} s "
+        f"({smi}; host times)")
+    return dict(hosts=hosts, render_s=render_s, boot_s=boot_s,
+                init_s=init_s, vtpctl_calls=vtpctl.calls,
+                submit_to_bound_s=bound_s, suspend_s=suspend_s,
+                resume_s=resume_s, gang_fabric=gang_fabrics[0],
+                domains=len(slices) - 1, launch_to_line_s=launch_s,
+                injected=injected, result=line,
+                schema_violations={k: len(v) for k, v in violations.items()})
+
+
+# -- phase_federation: one global queue over two regional GPU planes ------
+
+FED_FABRICS = 4            # IB fabrics of each region
+FED_FABRIC_HOSTS = 32      # HGX H100 hosts a fabric
+FED_GANGS = 12             # the global backlog's gangs ...
+FED_GANG_HOSTS = 16        # ... of whole hosts (8 GPUs a pod)
+FED_PRICES = {"local": 1.0, "remote": 0.7}
+FED_SYNC_S = 0.5           # the router's reconcile period
+FED_ARBITRAGE_S = 3.0      # a gang pending this long in one region moves
+FED_TICK_S = 0.2           # the regional servers' simulated kubelet
+FED_WORKER_STEPS = 200     # the card job's training steps
+FED_ACKED_STEP = 100       # acked step stamped on the first remote gang
+
+
+def fed_fleet(prefix, extra=()):
+    from volcano_tpu_torch.simulator import make_gpu_cluster
+    names = [f"{prefix}{f}h{i:02d}" for f in range(FED_FABRICS)
+             for i in range(FED_FABRIC_HOSTS)]
+    return make_gpu_cluster(
+        [(n, "hgx-h100-8") for n in names],
+        ib_fabrics={n: f"{prefix}-ib{n[1]}" for n in names},
+        extra_nodes=extra)
+
+
+class FedRegion:
+    """One regional plane as processes: its state server (durable, seeded
+    with its fleet, its kubelet simulated), controllers and scheduler."""
+
+    def __init__(self, name, fleet, workdir):
+        import pickle
+        self.name = name
+        os.makedirs(os.path.join(workdir, name))
+        self.plane = WirePlane(os.path.join(workdir, name))
+        seed = os.path.join(self.plane.workdir, "seed.pkl")
+        with open(seed, "wb") as f:
+            pickle.dump(fleet, f)
+        p = self.plane
+        p.spawn("server", "-m", "volcano_tpu_torch.server", "--port",
+                str(p.port), "--data-dir", p.data_dir, "--token-file",
+                p.token_file, "--state", seed, "--tick-period",
+                str(FED_TICK_S))
+
+    def start_clients(self):
+        self.plane.until(self.plane.healthy, WIRE_BOOT_S,
+                         f"region {self.name}'s /healthz")
+        self.plane.start_client("controllers", "--components", "controllers")
+        self.plane.start_client("scheduler", "--components", "scheduler",
+                                "--leader-elect", "--holder",
+                                f"{self.name}-s1")
+
+
+def fed_view(g, key):
+    """(admitted region, folded regional phase, attempt) of a global job."""
+    from volcano_tpu_torch.api import federation as fedapi
+    job = g.vcjobs.get(key)
+    if job is None:
+        return None, None, None
+    return (fedapi.admitted_region(job),
+            job.annotations.get(fedapi.FED_REGIONAL_PHASE_ANNOTATION),
+            int(job.annotations.get(fedapi.FED_ATTEMPT_ANNOTATION, 0) or 0))
+
+
+def fed_stamp(client, key, step):
+    """What the regional progress fold does: acked checkpoint metadata
+    on the regional job.  False if the copy is not there."""
+    from volcano_tpu_torch.api.slicehealth import (
+        CHECKPOINT_DIR_ANNOTATION, LAST_STEP_ANNOTATION,
+        RESUME_STEP_ANNOTATION)
+    job = client.vcjobs.get(key)
+    if job is None:
+        return False
+    job.annotations[LAST_STEP_ANNOTATION] = str(step)
+    job.annotations[RESUME_STEP_ANNOTATION] = str(step)
+    job.annotations[CHECKPOINT_DIR_ANNOTATION] = f"/ckpt/{key}"
+    client.update_vcjob(job)
+    return True
+
+
+def fed_stamp_progress(plane, key, worker, progress, stamps):
+    """Stamp the worker's progress (its step) on the regional job every
+    FED_SYNC_S until it exits, through a client of its own; the exit is
+    stamped on the worker (to FED_SYNC_S)."""
+    from volcano_tpu_torch.cache.remote_cluster import RemoteCluster
+    client = RemoteCluster(plane.url, token=plane.token)
+    try:
+        while worker.proc.poll() is None:
+            try:
+                with open(progress) as f:
+                    step = int(json.load(f)["step"])
+            except (OSError, ValueError, KeyError):
+                step = None
+            if step and (not stamps or step > stamps[-1][1]):
+                fed_stamp(client, key, step)
+                stamps.append((time.monotonic(), step))
+            time.sleep(FED_SYNC_S)
+        worker.exited = time.monotonic()
+    finally:
+        client.close()
+
+
+def fmt_goodput(goodput):
+    return {f"{r}/{gen}": v for (r, gen), v in goodput.items()}
+
+
+def phase_federation(bootstrap, smi):
+    """One global queue over two regional GPU planes, every part a process
+    of its own: a global state server, the regions `local` (this
+    machine's node beside FED_FABRICS fabrics of FED_FABRIC_HOSTS HGX
+    H100 hosts, price 1.0) and `remote` (as many hosts, price 0.7), each
+    with its server, controllers and scheduler, and `python -m
+    volcano_tpu_torch.federation.router`.  The global backlog: FED_GANGS
+    gangs of FED_GANG_HOSTS whole hosts and a one-GPU job with locality
+    `local` pinned to this card, whose pod runs the port's worker on
+    cuda; the script stamps its steps on the regional job as the
+    progress fold does and the router learns local's goodput from them.
+    Then remote's server is killed with SIGKILL: the router declares the
+    region lost after its TTL and requeues its gangs globally with the
+    attempt bumped; local binds as many as it has room for."""
+    from volcano_tpu_torch.api import federation as fedapi
+    from volcano_tpu_torch.api.goodput import generation_of
+    from volcano_tpu_torch.api.slicehealth import (LAST_STEP_ANNOTATION,
+                                                   RESUME_STEP_ANNOTATION)
+    from volcano_tpu_torch.cache.remote_cluster import RemoteCluster
+    node = local_node()
+    workdir = tempfile.mkdtemp(prefix="vtp-fed-")
+    os.makedirs(os.path.join(workdir, "global"))
+    gplane = WirePlane(os.path.join(workdir, "global"))
+    regions, clients, g, worker = {}, {}, None, None
+    try:
+        t0 = time.monotonic()
+        fleets = {"local": fed_fleet("l", [node]), "remote": fed_fleet("r")}
+        generations = {}
+        for name, fleet in fleets.items():
+            counts = {}
+            for n in fleet.nodes.values():
+                gen = generation_of(n.labels)
+                counts[gen] = counts.get(gen, 0) + 1
+            generations[name] = max(counts, key=counts.get)
+            regions[name] = FedRegion(name, fleet, workdir)
+        gplane.spawn("server", "-m", "volcano_tpu_torch.server", "--port",
+                     str(gplane.port), "--data-dir", gplane.data_dir,
+                     "--token-file", gplane.token_file)
+        gplane.until(gplane.healthy, WIRE_BOOT_S, "the global server")
+        for region in regions.values():
+            region.start_clients()
+        g = RemoteCluster(gplane.url, token=gplane.token)
+        for name, region in regions.items():
+            clients[name] = RemoteCluster(region.plane.url,
+                                          token=region.plane.token)
+            g.put_object("region", fedapi.region_record(
+                name, region.plane.url, price=FED_PRICES[name],
+                token=region.plane.token), key=name)
+        router_port = free_port()
+        gplane.metrics_port["router"] = router_port
+        gplane.spawn("router", "-m", "volcano_tpu_torch.federation.router",
+                     "--store", gplane.url, "--token", gplane.token,
+                     "--sync-s", str(FED_SYNC_S), "--arbitrage-s",
+                     str(FED_ARBITRAGE_S), "--holder", "rt1",
+                     "--metrics-port", str(router_port))
+        gplane.until(lambda: all(
+            float((g.regions.get(n) or {}).get("capacity_chips", 0) or 0) > 0
+            for n in regions), WIRE_TIMEOUT_S, "both regions' capacity")
+        up_s = time.monotonic() - t0
+        log(f"[federation] {len(fleets['local'].nodes)} + "
+            f"{len(fleets['remote'].nodes)} hosts, 8 processes up in "
+            f"{up_s:.3f} s; capacity by region "
+            f"{ {n: g.regions[n]['capacity_chips'] for n in regions} }, "
+            f"generations {generations} ({smi}; host times)")
+
+        # the global backlog
+        jobs, submitted = [], {}
+        for i in range(FED_GANGS):
+            jobs.append(gpu_job(f"fg{i:02d}", "default", FED_GANG_HOSTS, ""))
+        card = e2e_job(node)
+        card.name = "fed-card"
+        card.annotations[fedapi.FED_DATA_LOCALITY_ANNOTATION] = "local"
+        jobs.append(card)
+        for job in jobs:
+            submitted[job.key] = time.monotonic()
+            g.add_vcjob(job)
+        admitted_s, running_s = {}, {}
+
+        def settled():
+            for key in submitted:
+                region, phase, _ = fed_view(g, key)
+                now = time.monotonic()
+                if region and key not in admitted_s:
+                    admitted_s[key] = now - submitted[key]
+                if region and phase == "Running":
+                    running_s.setdefault(key, now - submitted[key])
+                else:
+                    running_s.pop(key, None)
+            return len(running_s) == len(submitted)
+        gplane.until(settled, WIRE_TIMEOUT_S, "every global job Running")
+        split = {}
+        for key in submitted:
+            split.setdefault(fed_view(g, key)[0], []).append(key)
+        attempts = {k: fed_view(g, k)[2] for k in submitted}
+        log(f"[federation] admission s (submit -> first admitted) "
+            f"{json.dumps({k.split('/')[1]: round(v, 3) for k, v in admitted_s.items()})}; "
+            f"submit -> Running s "
+            f"{json.dumps({k.split('/')[1]: round(v, 3) for k, v in running_s.items()})}; "
+            f"split {json.dumps({r: len(v) for r, v in split.items()})}; "
+            f"attempts {attempts} ({smi}; host times)")
+        if set(split) != {"local", "remote"} or \
+                fed_view(g, card.key)[0] != "local":
+            raise AssertionError(f"the regions' split: {split}")
+
+        # the card job's pod as the port's worker; a thread stamps its
+        # steps on the regional job as the progress fold does, while the
+        # remote gangs' acked steps are folded and the region dies
+        lc = clients["local"]
+        regions["local"].plane.until(lambda: any(
+            p.node_name == node.name for p in lc.pods.values()
+            if lc.vcjobs.get(card.key) and
+            p.owner == lc.vcjobs[card.key].uid),
+            WIRE_TIMEOUT_S, "the card job's pod in local")
+        (pod,) = [p for p in lc.pods.values()
+                  if p.owner == lc.vcjobs[card.key].uid]
+        progress = os.path.join(workdir, "progress.json")
+        worker = PodWorker(pod, node, bootstrap,
+                           WORKER_STEPS=FED_WORKER_STEPS,
+                           VTP_PROGRESS_FILE=progress)
+        stamps = []
+        stamper = threading.Thread(
+            target=fed_stamp_progress, daemon=True,
+            args=(regions["local"].plane, card.key, worker, progress, stamps))
+        stamper.start()
+
+        # acked progress on remote's gangs, folded into the global store
+        remote_keys = sorted(split["remote"])
+        acked = {}
+        for i, key in enumerate(remote_keys):
+            acked[key] = FED_ACKED_STEP + i
+            deadline = time.monotonic() + WIRE_TIMEOUT_S
+            while True:
+                gplane.check()
+                if not fed_stamp(clients["remote"], key, acked[key]):
+                    raise AssertionError(f"no copy of {key} in remote")
+                inner = time.monotonic() + 3
+                folded = None
+                while time.monotonic() < inner:
+                    folded = g.vcjobs[key].annotations.get(
+                        LAST_STEP_ANNOTATION)
+                    if folded == str(acked[key]):
+                        break
+                    time.sleep(0.1)
+                if folded == str(acked[key]):
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"{key}'s step never folded")
+
+        def learned():
+            return {(n, generations[n]): series(
+                gplane.metrics("router"),
+                "federation_region_goodput_steps_per_chip", region=n)
+                for n in regions}
+        gplane.until(lambda: learned()[("local", generations["local"])] > 0,
+                     WORKER_TIMEOUT_S, "local's learned goodput")
+        goodput_first = learned()
+
+        # the region dies
+        before = {k: fed_view(g, k)[2] for k in remote_keys}
+        t_kill = time.monotonic()
+        regions["remote"].plane.kill9("server")
+        gplane.until(lambda: (g.regions.get("remote") or {}).get("state")
+                     == fedapi.REGION_STATE_LOST, 4 * fedapi.REGION_TTL_S,
+                     "remote declared lost")
+        lost_s = time.monotonic() - t_kill
+        t_lost = time.monotonic()
+        requeued_running = {}
+
+        def requeued():
+            views = {k: fed_view(g, k) for k in remote_keys}
+            for k, (region, phase, attempt) in views.items():
+                if region == "local" and phase == "Running" and \
+                        attempt > before[k]:
+                    requeued_running.setdefault(k, time.monotonic() - t_lost)
+            return all(a > before[k] and r != "remote"
+                       for k, (r, _, a) in views.items()) and \
+                len(requeued_running) >= 1
+        gplane.until(requeued, WIRE_TIMEOUT_S, "remote's gangs requeued")
+        # the rebinds settle: local is full once its fabrics are
+        time.sleep(3 * FED_SYNC_S)
+        requeued()
+        views = {k: fed_view(g, k) for k in remote_keys}
+        waiting = sorted(k for k, (r, p, _) in views.items()
+                         if k not in requeued_running)
+        lost_steps = 0
+        for key in remote_keys:
+            job = g.vcjobs[key]
+            resume = int(job.annotations.get(RESUME_STEP_ANNOTATION, 0) or 0)
+            lost_steps += max(0, acked[key] - resume)
+            copy = lc.vcjobs.get(key)
+            if copy is not None and views[key][0] == "local":
+                lost_steps += max(0, acked[key] - int(copy.annotations.get(
+                    RESUME_STEP_ANNOTATION, 0) or 0))
+        with open(gplane.logs["router"], errors="replace") as f:
+            router_log = f.read()
+        sync_errors = router_log.count("router sync failed")
+        # the router's own lease: a pass that outlasts its TTL loses it
+        # and the next pass takes it back at a higher term
+        promotions = router_log.count("promoted: term")
+        log(f"[federation] remote's server killed: declared lost "
+            f"{lost_s:.3f} s after the kill (TTL {fedapi.REGION_TTL_S:g} s); "
+            f"{len(remote_keys)} gangs requeued with the attempt bumped "
+            f"{ {k.split('/')[1]: [before[k], views[k][2]] for k in remote_keys} }; "
+            f"{len(requeued_running)} Running again in local (requeue -> "
+            f"Running s "
+            f"{json.dumps({k.split('/')[1]: round(v, 3) for k, v in requeued_running.items()})}), "
+            f"{len(waiting)} waiting "
+            f"{ {k.split('/')[1]: views[k][:2] for k in waiting} }; acked "
+            f"steps lost {lost_steps}; router sync errors {sync_errors}; the "
+            f"router took its lease {promotions} time(s) ({smi}; host "
+            "times)")
+        if lost_steps or sync_errors or not requeued_running:
+            raise AssertionError("the region loss lost progress or the "
+                                 "router failed a sync")
+        stamper.join(timeout=WORKER_TIMEOUT_S)
+        injected, launch_s, line = worker.result("[federation] card job:")
+        worker = None
+        goodput = learned()
+        log(f"[federation] the card job's worker: {len(stamps)} step stamps "
+            f"up to step {stamps[-1][1] if stamps else None}; learned "
+            f"goodput (steps/s a GPU) by (region, generation) when first "
+            f"read {fmt_goodput(goodput_first)}, at the end "
+            f"{fmt_goodput(goodput)} ({smi}; host times)")
+    finally:
+        if worker is not None:
+            worker.kill()
+        for client in clients.values():
+            client.close()
+        if g is not None:
+            g.close()
+        gplane.stop()
+        for region in regions.values():
+            region.plane.stop()
+    shutil.rmtree(workdir, ignore_errors=True)
+    return dict(hosts={n: len(f.nodes) for n, f in fleets.items()},
+                up_s=up_s, admitted_s=admitted_s, running_s=running_s,
+                split={r: len(v) for r, v in split.items()},
+                attempts=attempts, card_launch_to_line_s=launch_s,
+                card_result=line, step_stamps=len(stamps),
+                goodput_first=fmt_goodput(goodput_first),
+                goodput=fmt_goodput(goodput),
+                loss_detected_s=lost_s, requeued=len(remote_keys),
+                rebound=len(requeued_running),
+                requeue_to_running_s=requeued_running,
+                waiting=len(waiting), acked_steps_lost=lost_steps,
+                router_sync_errors=sync_errors,
+                router_lease_promotions=promotions)
+
+
 def main() -> int:
     # the port first: alone, without the repo, the script fails here
     # before it prints anything
@@ -3056,7 +3860,7 @@ def main() -> int:
     # trains the tiny f32 config with flash off, in a process of its own)
     zero_counts(fa)
     sc, plane = phase_schedule(bootstrap)
-    sc["wire"] = phase_wire(bootstrap, smi, sc)
+    sc["wire"] = phase_wire(bootstrap, smi)
     sc["kernel_launches"] = launch_counts(fa)
     # preemption and failover launch none either (the resumed worker
     # trains the tiny f32 config, flash off, in its own process)
@@ -3065,6 +3869,12 @@ def main() -> int:
     del plane
     sc["failover"] = phase_failover(bootstrap, smi)
     sc["preempt_failover_kernel_launches"] = launch_counts(fa)
+    # nor do the operator's CLI and the federation tier (their workers
+    # run in processes of their own)
+    zero_counts(fa)
+    sc["cli"] = phase_cli(bootstrap, smi)
+    sc["federation"] = phase_federation(bootstrap, smi)
+    sc["cli_federation_kernel_launches"] = launch_counts(fa)
     common = {"shape": list(SLICE_SHAPE), "dtype": "bfloat16",
               "causal": True, "card": smi,
               # every case each kernel was held at against its plain version

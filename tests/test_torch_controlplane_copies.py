@@ -66,6 +66,11 @@ plugins.serving plugins.numa_policy plugins.resource_strategy_fit
 plugins.numaaware plugins.rescheduling controllers.elastic
 controllers.failover controllers.serving controllers.jobflow
 controllers.colocation controllers.garbagecollector
+cli.__init__ cli.manifest cli.vtpctl bundle
+analysis.astlint analysis.flakes analysis.lintcache analysis.racecheck
+analysis.registry analysis.schema
+federation.__init__ federation.retry federation.ha federation.mirror
+federation.stitch federation.slo federation.router
 """.split()
 
 # the port's own modules, counterparts of reference modules of other names
@@ -76,6 +81,10 @@ NEW = {
     "controllers.job.plugins.torch_plugin":
         "controllers.job.plugins.jax_plugin",
 }
+
+# the port's own modules whose counterparts live outside the reference
+# package, by their path in the repo
+NEW_OUTSIDE = {"analysis.vtplint": "tools/vtplint.py"}
 
 # module -> why it differs from the reference beyond the rename
 GPU_LAYER = {
@@ -172,6 +181,24 @@ GPU_LAYER = {
                             "resume",
     "controllers.serving": "the pool is the NVLink domains "
                            "(GPU_CLIQUE_LABEL) of the replicas",
+    "cli.manifest": "docstring: the example requests nvidia.com/gpu "
+                    "with the torch plugin",
+    "cli.vtpctl": "init provisions NVLink domains into an IB fabric "
+                  "(--ib-fabric); --gpu requests nvidia.com/gpu; node "
+                  "list, slices, elastic, fleet, failover and regions "
+                  "read the GPU labels, reasons and counts",
+    "bundle": "--topology takes NVLink domains and their IB fabrics; "
+              "cluster-init.sh runs the port's vtpctl once a fabric; "
+              "the roles run the port's modules with the gpu "
+              "collector; NVLink and GPU panel titles; no change "
+              "number in a comment",
+    "analysis.lintcache": "a cache directory of its own, and the "
+                          "port's vtplint entry point in the "
+                          "toolchain digest; no change numbers in the "
+                          "docstring",
+    "federation.router": "a gang's demand, a region's capacity and "
+                         "idle GPUs and its generation counted in "
+                         "nvidia.com/gpu; the h100/h200 example",
 }
 
 
@@ -183,6 +210,10 @@ WORDING = {
     "actions.sweep": "docstring: no change number for the thread pilot",
     "cache.partitioned": "docstring: no change number for replication",
     "faults": "docstring: no change number for the WAL",
+    "analysis.astlint": "docstring: no change numbers for the req-id "
+                        "rule",
+    "federation.mirror": "docstring: no issue or change number",
+    "federation.slo": "docstring: no change numbers for the three SLOs",
 }
 
 
@@ -196,7 +227,7 @@ def test_gpu_layer_names_slice_modules():
     assert all(GPU_LAYER.values()) and all(WORDING.values())
 
 
-@pytest.mark.parametrize("module", SLICE + sorted(NEW))
+@pytest.mark.parametrize("module", SLICE + sorted(NEW) + sorted(NEW_OUTSIDE))
 def test_module_is_ported(module):
     assert _path(PORT, module).is_file(), module
 
@@ -216,6 +247,13 @@ def test_gpu_layer_module_differs(module):
     want = RENAME.sub("volcano_tpu_torch", ref.read_text())
     assert _path(PORT, module).read_text() != want, \
         f"{module} equals the reference: drop it from GPU_LAYER/WORDING"
+
+
+@pytest.mark.parametrize("module", sorted(NEW_OUTSIDE))
+def test_new_module_differs_from_its_counterpart(module):
+    want = RENAME.sub("volcano_tpu_torch",
+                      (REPO / NEW_OUTSIDE[module]).read_text())
+    assert _path(PORT, module).read_text() != want
 
 
 def _control_plane_files():

@@ -109,6 +109,21 @@ def test_control_plane_loads_neither_torch_nor_jax():
             "import volcano_tpu_torch.controllers.jobflow\n"
             "import volcano_tpu_torch.controllers.colocation\n"
             "import volcano_tpu_torch.controllers.garbagecollector\n"
+            "import volcano_tpu_torch.cli.manifest\n"
+            "import volcano_tpu_torch.cli.vtpctl\n"
+            "import volcano_tpu_torch.bundle\n"
+            "import volcano_tpu_torch.analysis.astlint\n"
+            "import volcano_tpu_torch.analysis.flakes\n"
+            "import volcano_tpu_torch.analysis.lintcache\n"
+            "import volcano_tpu_torch.analysis.racecheck\n"
+            "import volcano_tpu_torch.analysis.registry\n"
+            "import volcano_tpu_torch.analysis.schema\n"
+            "import volcano_tpu_torch.analysis.vtplint\n"
+            "import volcano_tpu_torch.federation\n"
+            "import volcano_tpu_torch.federation.router\n"
+            "import volcano_tpu_torch.federation.slo\n"
+            "from volcano_tpu_torch.analysis import registry\n"
+            "assert not registry.check_all()\n"
             f"roots = {FORBIDDEN + ('torch',)!r}\n"
             "bad = [m for m in sys.modules if any(m == r or "
             "m.startswith(r + '.') for r in roots)]\n"

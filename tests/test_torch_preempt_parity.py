@@ -3,7 +3,9 @@
 The eight scenarios of the reference's `tests/test_preempt_reclaim.py`
 (preempt, the victim's gang floor, critical pods, reclaim across
 queues, an unreclaimable queue, hierarchical capacity, gangpreempt's
-two-cycle nomination and gangreclaim) run through both packages'
+two-cycle nomination and gangreclaim), and gangreclaim against whole
+gangs of a queue above its share (the state `chip_smoke.py`'s third
+preemption round drives on the card), run through both packages'
 `uthelper.TestContext` on mirrored clusters: a TPU v5e-16 slice (4 hosts
 x 4 chips) mirrors a 4 x 4 NVLink domain, the DCN pod an IB fabric of
 the same name, and every node keeps its name.  Then one of the
@@ -167,14 +169,14 @@ def capacity(s):
                          podgroups=[pg_w], pods=pods_w, conf=CAPACITY_CONF)
 
 
-def _gang_topology(s, action, queues):
+def _gang_topology(s, action, queues, weights=(1, 1), filler_min=1):
     cluster = _domains(s, ("sa", "sb"))
     filler_queue, train_queue = queues or ("default", "default")
-    for q in queues:
-        cluster.add_queue(s.Queue(name=q, weight=1))
+    for q, w in zip(queues, weights):
+        cluster.add_queue(s.Queue(name=q, weight=w))
     for d in ("sa", "sb"):
         pg, pods = s.gang_job(f"filler-{d}", queue=filler_queue, replicas=4,
-                              min_available=1,
+                              min_available=filler_min,
                               requests={"cpu": 8, s.device: 4},
                               running_on=[f"{d}-w{i}" for i in range(4)],
                               pg_phase=s.Phase.RUNNING)
@@ -202,6 +204,15 @@ def gangpreempt(s):
 
 def gangreclaim(s):
     return _gang_topology(s, "gangreclaim", ("greedy", "owed"))
+
+
+def gangreclaim_whole_gangs(s):
+    """The state of chip_smoke.py's round 3 at a small size: the
+    domains held by whole gangs (minAvailable = replicas) of a queue
+    above its share after the weights turned 1:3, gangpreempt beside
+    gangreclaim on the conf."""
+    return _gang_topology(s, "gangpreempt, gangreclaim", ("prod", "research"),
+                          weights=(1, 3), filler_min=4)
 
 
 EVENT_WORDS = (("google.com/tpu", "nvidia.com/gpu"),
@@ -284,6 +295,7 @@ SCENARIOS = {
     "hierarchical_capacity": (capacity, 1, check_capacity),
     "gangpreempt_two_cycle": (gangpreempt, 2, None),
     "gangreclaim": (gangreclaim, 2, None),
+    "gangreclaim_whole_gangs": (gangreclaim_whole_gangs, 2, None),
 }
 
 

@@ -75,5 +75,6 @@ class ProgressReporter:
             try:
                 os.unlink(tmp)
             except OSError:
+                # vtplint: disable=except-pass (cleanup of a failed tmp write; the False below is the classification)
                 pass           # the tmp write itself failed: nothing to remove
             return False

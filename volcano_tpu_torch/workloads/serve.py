@@ -173,6 +173,7 @@ class ServingStatsReporter:
             try:
                 os.unlink(tmp)
             except OSError:
+                # vtplint: disable=except-pass (cleanup of a failed tmp write; the False below is the classification)
                 pass
             return False
 

@@ -55,8 +55,8 @@ scheduled under the default conf onto 1024 simulated HGX H100 hosts in
 32 fabrics until a cycle binds nothing, with each cycle's wall time and
 the invariants of what is bound; and a vcjob with the torch and svc job
 plugins scheduled onto this node and launched as the port's worker on
-cuda with the env the plugins injected; (15) `phase_wire`: half that
-fleet and backlog (512 hosts, 64 vcjobs) scheduled by the port's
+cuda with the env the plugins injected; (15) `phase_wire`: a quarter
+of that fleet and backlog (256 hosts, 32 vcjobs) scheduled by the port's
 control plane as separate processes that meet only at the state
 server over HTTP (`python -m
 volcano_tpu_torch.server` over a durable data dir with a bearer token,
@@ -67,7 +67,28 @@ over the wire and run on cuda,
 the server's GPU guard refusing an overcommitting bind and a stale pod
 write, and a kill -9 of the server with its recovery (every acked bind
 kept, the clients resynced, the job still Running), each with its host
-times and the WAL's fsyncs; (16) `phase_preempt`: phase_schedule's
+times and the WAL's fsyncs; (16) `phase_ha`: half phase_schedule's
+fleet and backlog (512 hosts, 64 vcjobs) over three TLS state-server
+replicas (`--replica-id r1..r3`,
+quorum commit and election of 2, the bearer token; one self-signed
+certificate for the group), the controllers, two leader-elected
+schedulers and a node-agent daemon for this machine's node
+(`--usage-source collectors:local,gpu --enforcer record`) reaching the
+group through its three URLs: plain HTTP and a write without the token
+refused, the daemon's Healthy verdict beside the /dev/nvidia<N> nodes
+and torch's device count, a vcjob bound and run on cuda, a kill -9 of
+the leader replica while binds flow (the seconds to a new leader and
+to the clients' first acked write, every acked bind read back from the
+new leader and the surviving follower, the invariants after every
+cycle), its restart as a follower, and a kill -9 of the leading
+scheduler (the seconds until the standby binds, no pod bound twice);
+(17) `phase_partitioned`: the keyspace-partitioned write plane, three
+TLS leader groups behind `--cluster-url "g1;g2;g3"` holding 256
+simulated hosts, two sharded schedulers binding a quarter of the
+backlog, with the nodes split by subtree, bound pods relocated to
+their node's group, a gang bound as one batch a group, the meta kinds
+on group 0, `vtpctl shards` over the plane, binds a second and cycle
+ms; (18) `phase_preempt`: phase_schedule's
 settled fleet under the default conf with gangpreempt, preempt and
 reclaim before backfill -- a spot layer of research jobs that run with
 one pod of eight fills three research-only fabrics whose jobs finished
@@ -79,14 +100,19 @@ gangreclaim on the conf and the weights turned to research 3, prod 1,
 a research gang of 32 hosts held to one NVLink domain that prod's
 fillers hold -- with evictions and GPUs taken back by action, each
 cycle's ms by action, each preemptor's submit-to-bound s and the
-invariants read after every cycle; (17) `phase_failover`: a vcjob on this card trains the worker's
+invariants read after every cycle; (19) `phase_failover`: a vcjob on this card trains the worker's
 tiny f32 model on cuda and checkpoints every 2 steps, the node agent
 reports the card's host Failed over its K ticks, the failover
 controller drains the job with one restart, quarantines the NVLink
 domain and stamps the last checkpoint step, and once the host is
 healthy and the quarantine lifted the job rebinds to the card, where
 the port's worker resumes at the stamped step; its loss is held
-against the uninterrupted run's (1e-4 relative); (18) `phase_cli`: a
+against the uninterrupted run's (1e-4 relative); then the card's host
+fails again with a spare simulated host (an NVLink domain in an IB
+fabric of its own) uncordoned: the controller reschedules the job off
+the failed domain onto it, this script as that host's kubelet resumes
+the pod on this card, and the controller's reschedule, resume and
+MTTR each hold an observation; (20) `phase_cli`: a
 deploy bundle rendered by `python -m volcano_tpu_torch.bundle` for 4 IB
 fabrics of 32 HGX H100 hosts, its server, controllers and scheduler
 started from its units, its cluster-init.sh registering the hosts
@@ -95,7 +121,7 @@ pinned to this card, a 16-host gang held to one fabric, the views,
 vsuspend/vresume and vcancel, each a `python -m
 volcano_tpu_torch.cli.vtpctl --server` call; the card job's pod run as
 the worker on cuda; the live /metrics held to the bundle's label
-schema; (19) `phase_federation`: a global state server, two regional
+schema; (21) `phase_federation`: a global state server, two regional
 GPU planes (`local` with this machine's node, `remote` cheaper) and
 `python -m volcano_tpu_torch.federation.router` as processes; 12
 16-host gangs and a one-GPU job on this card admitted across both,
@@ -122,6 +148,7 @@ import importlib
 import json
 import math
 import os
+import random
 import re
 import shlex
 import shutil
@@ -869,10 +896,33 @@ def phase_remat(model, train, fa):
     return share
 
 
+_PORTS_GIVEN = set()
+
+
 def free_port() -> int:
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
+    """A free TCP port below the kernel's ephemeral range, never the
+    same one twice in this process.  A port from that range can be
+    handed to another process's outgoing connection between this check
+    and the bind of the process it was picked for (a scheduler's
+    metrics port once lost that race to the plane's own traffic)."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768
+    pick = random.Random()
+    for _ in range(1000):
+        port = pick.randrange(10000, max(low, 10001))
+        if port in _PORTS_GIVEN:
+            continue
+        with socket.socket() as sock:
+            try:
+                sock.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        _PORTS_GIVEN.add(port)
+        return port
+    raise RuntimeError("no free port below the ephemeral range")
 
 
 def launch_worker(extra):
@@ -1727,14 +1777,17 @@ def schedule_backlog(cluster, mgr, sched, local_name):
     return dict(cycles=cycles, **counts)
 
 
-def backlog_invariants(tag, jobs, pods, nodes, local_name):
+def backlog_invariants(tag, jobs, pods, nodes, local_name, quiet=False,
+                       partial_ok=False):
     """What is bound keeps the backlog's invariants: no gang bound in
-    part, no hard-topology gang across IB fabrics, no single-host job
-    across hosts, no node over its nvidia.com/gpu allocatable, no
-    backlog pod on this machine's node, and some hard-topology gang
-    placed.  Returns the counts of what is bound."""
+    part (unless `partial_ok`: the caller accounts for them), no
+    hard-topology gang across IB fabrics, no single-host job across
+    hosts, no node over its nvidia.com/gpu allocatable, no backlog pod
+    on this machine's node, and some hard-topology gang placed.  A
+    finished pod holds nothing.  Returns the counts of what is bound."""
     from volcano_tpu_torch.api.resource import GPU, Resource
     from volcano_tpu_torch.controllers.hypernode import IB_FABRIC_LABEL
+    pods = {k: p for k, p in pods.items() if not p.is_terminated()}
     owned = {}
     for p in pods.values():
         owned.setdefault(p.owner, []).append(p)
@@ -1759,16 +1812,19 @@ def backlog_invariants(tag, jobs, pods, nodes, local_name):
         p.node_name for p in owned.get(j.uid, ()))}
     hard = [j.name for j in jobs if j.network_topology is not None]
     backlog = [p for j in jobs for p in owned.get(j.uid, ()) if p.node_name]
-    log(f"{tag} {len(placed)} of {len(jobs)} jobs placed, "
-        f"{len(set(hard) & placed)} of {len(hard)} hard-topology gangs; "
-        f"partially bound gangs {partial}, hard gangs across fabrics "
-        f"{spread}, single-host jobs across hosts {straddle}, nodes over "
-        f"their GPUs {over}")
-    if partial or spread or straddle or over or not set(hard) & placed:
+    if not quiet:
+        log(f"{tag} {len(placed)} of {len(jobs)} jobs placed, "
+            f"{len(set(hard) & placed)} of {len(hard)} hard-topology gangs; "
+            f"partially bound gangs {partial}, hard gangs across fabrics "
+            f"{spread}, single-host jobs across hosts {straddle}, nodes over "
+            f"their GPUs {over}")
+    if (partial and not partial_ok) or spread or straddle or over or \
+            not set(hard) & placed:
         raise AssertionError("the backlog's placement breaks an invariant")
     if any(p.node_name == local_name for p in backlog):
         raise AssertionError("a backlog pod landed on this machine's node")
-    return dict(jobs=len(jobs), jobs_placed=len(placed),
+    extra = dict(partial_gangs=partial) if partial_ok else {}
+    return dict(jobs=len(jobs), jobs_placed=len(placed), **extra,
                 hard_gangs=len(hard), hard_gangs_placed=len(set(hard) & placed),
                 pods_bound=len(backlog),
                 gpus_bound=sum(p.resource_requests().get(GPU)
@@ -1942,10 +1998,11 @@ WIRE_POLL_S = 0.2       # kubectl's (and the kubelet's) polling period
 WIRE_BOOT_S = 120       # a server boot, seed or WAL replay included
 WIRE_TIMEOUT_S = 240    # each wait for the plane to converge
 WIRE_GRACE_S = 5.0      # SIGTERM grace before SIGKILL at teardown
-# the wire phase's depth: half phase_schedule's fleet and backlog, in
-# the same fabrics and mix, which keeps the script near its time budget
-WIRE_HOSTS = SCHED_HOSTS // 2
-WIRE_JOBS = SCHED_JOBS // 2
+# the wire phase's depth: a quarter of phase_schedule's fleet and
+# backlog, in the same fabrics and mix, which keeps the script near its
+# time budget (phase_ha runs the half-depth fleet over the wire)
+WIRE_HOSTS = SCHED_HOSTS // 4
+WIRE_JOBS = SCHED_JOBS // 4
 
 
 class WirePlane:
@@ -1965,10 +2022,30 @@ class WirePlane:
         self.port = free_port()
         self.url = f"http://127.0.0.1:{self.port}"
         self.procs, self.logs, self.metrics_port = {}, {}, {}
+        # the TLS context this script reads the servers with, and the
+        # flags every client process gets besides the URL and token
+        self.ctx, self.client_flags = None, []
 
-    def spawn(self, name, *argv):
+    def server_url(self):
+        """The URL this script sends its own server calls to."""
+        return self.url
+
+    def use_tls(self):
+        """One self-signed certificate for every server of the plane
+        (SAN 127.0.0.1); it is also the clients' and this script's CA
+        bundle."""
+        import ssl
+
+        from volcano_tpu_torch.server.tlsutil import generate_self_signed
+        self.cert = os.path.join(self.workdir, "tls.crt")
+        self.key = os.path.join(self.workdir, "tls.key")
+        generate_self_signed(self.cert, self.key)
+        self.ctx = ssl.create_default_context(cafile=self.cert)
+        self.client_flags = ["--ca-cert", self.cert]
+
+    def spawn(self, name, *argv, env=None):
         self.logs[name] = os.path.join(self.workdir, f"{name}.log")
-        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        env = dict(os.environ, **(env or {}), PYTHONPATH=os.pathsep.join(
             p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
         with open(self.logs[name], "a") as f:
             self.procs[name] = subprocess.Popen(
@@ -1986,14 +2063,15 @@ class WirePlane:
     def start_client(self, name, *argv):
         self.metrics_port[name] = free_port()
         self.spawn(name, "-m", "volcano_tpu_torch", "--cluster-url", self.url,
-                   "--token-file", self.token_file, "--period",
-                   str(WIRE_PERIOD_S), "--metrics-port",
+                   "--token-file", self.token_file, *self.client_flags,
+                   "--period", str(WIRE_PERIOD_S), "--metrics-port",
                    str(self.metrics_port[name]), *argv)
 
-    def healthy(self):
+    def healthy(self, url=None):
         import urllib.request
         try:
-            with urllib.request.urlopen(self.url + "/healthz", timeout=2):
+            with urllib.request.urlopen((url or self.url) + "/healthz",
+                                        timeout=2, context=self.ctx):
                 return True
         except OSError:
             return False
@@ -2016,29 +2094,37 @@ class WirePlane:
                                          self.tail(n) for n in self.procs))
             time.sleep(WIRE_POLL_S)
 
-    def request(self, method, path, body=None):
-        """(HTTP status, JSON body) of one call with the token."""
+    def request(self, method, path, body=None, url=None, token=True):
+        """(HTTP status, JSON body) of one call, with the token unless
+        `token` is false, to `url` (default: `server_url()`)."""
         import urllib.error
         import urllib.request
+        headers = {"Content-Type": "application/json"}
+        if token:
+            headers["Authorization"] = f"Bearer {self.token}"
         req = urllib.request.Request(
-            self.url + path, method=method,
+            (url or self.server_url()) + path, method=method,
             data=None if body is None else json.dumps(body).encode(),
-            headers={"Authorization": f"Bearer {self.token}",
-                     "Content-Type": "application/json"})
+            headers=headers)
         try:
-            with urllib.request.urlopen(req, timeout=60) as r:
+            with urllib.request.urlopen(req, timeout=60,
+                                        context=self.ctx) as r:
                 return r.status, json.loads(r.read())
         except urllib.error.HTTPError as e:
             return e.code, json.loads(e.read() or b"{}")
 
-    def metrics(self, name):
-        """{series: value} of a process's /metrics; the server's is
-        open, the clients' are on their own ports."""
+    def metrics(self, name, url=None):
+        """{series: value} of a process's /metrics; a server's (the
+        "server", or the one at `url`) is open, the clients' are on
+        their own ports."""
         import urllib.request
-        url = self.url + "/metrics" if name == "server" else \
+        if url is None and name == "server":
+            url = self.server_url()
+        url = url + "/metrics" if url else \
             f"http://127.0.0.1:{self.metrics_port[name]}/metrics"
         try:
-            with urllib.request.urlopen(url, timeout=5) as r:
+            with urllib.request.urlopen(url, timeout=5,
+                                        context=self.ctx) as r:
                 text = r.read().decode()
         except OSError:
             return {}
@@ -2083,10 +2169,10 @@ def series(metrics, name, **labels):
     return total
 
 
-def wire_read(plane):
+def wire_read(plane, url=None):
     """The server's truth, decoded: (rv, epoch, pods, nodes, vcjobs)."""
     from volcano_tpu_torch.api import codec
-    code, snap = plane.request("GET", "/snapshot")
+    code, snap = plane.request("GET", "/snapshot", url=url)
     if code != 200:
         raise AssertionError(f"GET /snapshot: {code} {snap}")
     stores = snap["stores"]
@@ -2105,13 +2191,15 @@ def gpus_on(pods, node):
                    TaskStatus.BOUND, TaskStatus.RUNNING))
 
 
-def wire_backlog(plane, kubectl, node, smi):
+def wire_backlog(plane, kubectl, node, smi, n_jobs=WIRE_JOBS, tag="[wire]",
+                 schedulers=(("scheduler", "s1"),)):
     """The backlog submitted through kubectl with admission server-side;
-    the scheduler process started once the controllers have created
-    every pod; the kubelet's ticks until two scheduler cycles in a row
-    bind nothing; the invariants read back from the server."""
+    the scheduler processes (name, leader-election holder) started once
+    the controllers have created every pod; the kubelet's ticks until
+    two scheduler cycles in a row bind nothing; the invariants read back
+    from the server."""
     jobs, t0 = [], time.monotonic()
-    for job in backlog_jobs(WIRE_JOBS):
+    for job in backlog_jobs(n_jobs):
         jobs.append(kubectl.add_vcjob(job))
     submit_s = time.monotonic() - t0
     uids, want = {j.uid for j in jobs}, sum(j.total_replicas() for j in jobs)
@@ -2119,21 +2207,22 @@ def wire_backlog(plane, kubectl, node, smi):
                             if p.owner in uids) == want,
                 WIRE_TIMEOUT_S, f"the controllers' {want} pods")
     pods_s = time.monotonic() - t0
-    log(f"[wire] {len(jobs)} vcjobs submitted over the wire in "
+    log(f"{tag} {len(jobs)} vcjobs submitted over the wire in "
         f"{submit_s:.3f} s; the controller process created their {want} "
         f"pods {pods_s:.3f} s after the first submit ({smi}; host times)")
     # the audit trail (on from its first read) stamps each bind as the
     # server applies it
     audit0 = plane.request("GET", "/audit")[1]["idx"]
-    plane.start_client("scheduler", "--components", "scheduler",
-                       "--leader-elect", "--holder", "s1")
+    for name, holder in schedulers:
+        plane.start_client(name, "--components", "scheduler",
+                           "--leader-elect", "--holder", holder)
+    names = [name for name, _ in schedulers]
     t0 = time.monotonic()
     last, changed_at_cycle, first_bind, last_bind = 0, 0, None, None
     while True:
         plane.check()
         kubectl.tick()                  # the kubelet: Bound -> Running
-        cycles = series(plane.metrics("scheduler"),
-                        "e2e_scheduling_latency_seconds_count")
+        cycles = sched_cycles(plane, names)
         bound = sum(1 for p in kubectl.pods.values()
                     if p.owner in uids and p.node_name)
         now = time.monotonic()
@@ -2146,17 +2235,19 @@ def wire_backlog(plane, kubectl, node, smi):
         if now - t0 > WIRE_TIMEOUT_S:
             raise AssertionError(f"still binding after {WIRE_TIMEOUT_S} s")
         time.sleep(WIRE_POLL_S)
-    sched = plane.metrics("scheduler")
-    cycles = series(sched, "e2e_scheduling_latency_seconds_count")
-    cycle_s = series(sched, "e2e_scheduling_latency_seconds_sum")
+    scheds = [plane.metrics(n) for n in names]
+    cycles = sum(series(m, "e2e_scheduling_latency_seconds_count")
+                 for m in scheds)
+    cycle_s = sum(series(m, "e2e_scheduling_latency_seconds_sum")
+                  for m in scheds)
     rv, _, pods, nodes, vcjobs = wire_read(plane)
-    counts = backlog_invariants("[wire]", [vcjobs[j.key] for j in jobs],
+    counts = backlog_invariants(tag, [vcjobs[j.key] for j in jobs],
                                 pods, nodes, node.name)
     stamps = bind_stamps(plane, audit0, {k for k, p in pods.items()
                                          if p.owner in uids})
     span = max(stamps) - min(stamps)
     binds_per_s = len(stamps) / span if span > 0 else float("inf")
-    log(f"[wire] the scheduler process bound {counts['pods_bound']} pods "
+    log(f"{tag} the scheduler process bound {counts['pods_bound']} pods "
         f"of {counts['jobs_placed']} jobs, {counts['gpus_bound']:g} GPUs: "
         f"kubectl saw the first bind {first_bind - t0:.3f} s and the last "
         f"{last_bind - t0:.3f} s after its start; the server applied "
@@ -2174,12 +2265,19 @@ def wire_backlog(plane, kubectl, node, smi):
                 mean_cycle_ms=1e3 * cycle_s / max(cycles, 1), **counts)
 
 
-def bind_stamps(plane, since, keys):
+def sched_cycles(plane, names):
+    """The scheduling cycles the scheduler processes `names` have run."""
+    return sum(series(plane.metrics(n), "e2e_scheduling_latency_seconds_count")
+               for n in names)
+
+
+def bind_stamps(plane, since, keys, url=None):
     """The audit stamp of each pod's first write with a node, from the
-    audit index `since` on."""
+    audit index `since` on (of the server at `url`, default the
+    plane's)."""
     stamps = {}
     while True:
-        doc = plane.request("GET", f"/audit?since={since}")[1]
+        doc = plane.request("GET", f"/audit?since={since}", url=url)[1]
         if doc["lost"]:
             raise AssertionError("the audit ring dropped records")
         for rec in doc["records"]:
@@ -2191,7 +2289,7 @@ def bind_stamps(plane, since, keys):
         since = doc["idx"]
 
 
-def wire_end_to_end(plane, kubectl, node, bootstrap, smi):
+def wire_end_to_end(plane, kubectl, node, bootstrap, smi, tag="[wire]"):
     """The end-to-end vcjob submitted through kubectl and bound by the
     scheduler process; this script as the kubelet reads the bound pod
     over the wire, posts it Running and launches its worker on cuda,
@@ -2213,7 +2311,7 @@ def wire_end_to_end(plane, kubectl, node, bootstrap, smi):
     plane.until(lambda: kubectl.vcjobs[job.key].phase is JobPhase.RUNNING,
                 WIRE_TIMEOUT_S, "the end-to-end job's Running phase")
     job_running_s = time.monotonic() - t0
-    log(f"[wire] end-to-end: submit -> bound {bound_s:.3f} s, -> Running "
+    log(f"{tag} end-to-end: submit -> bound {bound_s:.3f} s, -> Running "
         f"posted {running_s:.3f} s, -> the job Running {job_running_s:.3f} "
         f"s ({smi}; host times)")
     return dict(job=job, pod=pod, worker=worker, bound_s=bound_s,
@@ -2364,8 +2462,8 @@ def wire_crash(plane, kubectl, node, e2e, smi):
 
 def phase_wire(bootstrap, smi):
     """The port's control plane as separate processes that meet only at
-    the state server: half phase_schedule's fleet and backlog (WIRE_HOSTS,
-    WIRE_JOBS) scheduled over HTTP, a vcjob run on this card, the server's GPU
+    the state server: a quarter of phase_schedule's fleet and backlog
+    (WIRE_HOSTS, WIRE_JOBS) scheduled over HTTP, a vcjob run on this card, the server's GPU
     guard, and a kill -9 of the server with the plane's recovery."""
     import pickle
     from volcano_tpu_torch.api.queue import Queue
@@ -2398,7 +2496,7 @@ def phase_wire(bootstrap, smi):
         log(f"[wire] bound over the wire: {backlog['pods_bound']} pods, "
             f"{backlog['jobs_placed']} jobs, {backlog['gpus_bound']:g} GPUs, "
             f"{backlog['hard_gangs_placed']} hard gangs, on {WIRE_HOSTS} "
-            f"hosts (half phase_schedule's fleet and backlog)")
+            f"hosts (a quarter of phase_schedule's fleet and backlog)")
         e2e = wire_end_to_end(plane, kubectl, node, bootstrap, smi)
         guard = wire_guard(plane, kubectl, node, e2e["pod"], smi)
         crash = wire_crash(plane, kubectl, node, e2e, smi)
@@ -2420,6 +2518,784 @@ def phase_wire(bootstrap, smi):
                 seed_s=seed_s, boot_s=boot_s, backlog=backlog,
                 hosts=WIRE_HOSTS, jobs=WIRE_JOBS, end_to_end=e2e,
                 guard=guard, crash=crash)
+
+
+# -- phase_ha: the secured, replicated control plane --------------------
+
+HA_REPLICAS = ("r1", "r2", "r3")
+HA_QUORUM = 2           # commit and election quorum: a majority of three
+HA_HOSTS = SCHED_HOSTS // 2     # half phase_schedule's fleet and backlog
+HA_JOBS = SCHED_JOBS // 2
+HA_FREE_GPUS = 512      # GPUs the finished backlog jobs free for the kill
+HA_KILL_GANGS = 8       # 4-host gangs submitted before the kill, and after
+HA_POLL_S = 0.05        # the election and takeover clocks' polling period
+HA_AGENT_SYNCS = 3      # the node-agent daemon's syncs before its verdict
+
+
+class HaPlane(WirePlane):
+    """The port's control plane over a replica group: three state-server
+    processes over durable data dirs, TLS only, with the bearer token,
+    quorum commit and election (HA_QUORUM of three), one self-signed
+    certificate for the group (it is also every client's CA bundle), and
+    client processes that reach the group through its three URLs.  The
+    replicas' own RPCs to each other verify the certificate through
+    SSL_CERT_FILE: replication takes no CA flag."""
+
+    def __init__(self, workdir):
+        super().__init__(workdir)
+        self.use_tls()
+        self.ports = {r: free_port() for r in HA_REPLICAS}
+        self.urls = {r: f"https://127.0.0.1:{p}" for r, p in self.ports.items()}
+        self.url = ",".join(self.urls.values())
+        self.leader = HA_REPLICAS[0]
+
+    def server_url(self):
+        return self.urls[self.leader]
+
+    def start_replica(self, rid, seed="", follow=""):
+        argv = ["-m", "volcano_tpu_torch.server", "--port",
+                str(self.ports[rid]), "--data-dir",
+                os.path.join(self.workdir, f"state-{rid}"),
+                "--tls-cert", self.cert, "--tls-key", self.key,
+                "--token-file", self.token_file, "--replica-id", rid,
+                "--peers", ",".join(u for r, u in self.urls.items()
+                                    if r != rid),
+                "--commit-quorum", str(HA_QUORUM),
+                "--election-quorum", str(HA_QUORUM)]
+        if seed:
+            argv += ["--state", seed]
+        if follow:
+            argv += ["--replicate-from", follow]
+        self.spawn(rid, *argv, env={"SSL_CERT_FILE": self.cert})
+        self.until(lambda: self.healthy(self.urls[rid]), WIRE_BOOT_S,
+                   f"replica {rid}'s /healthz")
+
+    def status(self, rid):
+        """The replica's GET /replication, or None while it is down."""
+        try:
+            code, doc = self.request("GET", "/replication",
+                                     url=self.urls[rid])
+        except OSError:
+            return None
+        return doc if code == 200 else None
+
+    def roles(self):
+        """{replica: (role, term, proven)} of the replicas running."""
+        out = {}
+        for rid in HA_REPLICAS:
+            if rid in self.procs:
+                doc = self.status(rid)
+                if doc is not None:
+                    out[rid] = (doc["role"], doc["term"], doc["proven"])
+        return out
+
+    def find_leader(self):
+        """The one proven leader among the running replicas, or None."""
+        leaders = [r for r, (role, _, proven) in self.roles().items()
+                   if role == "leader" and proven]
+        if len(leaders) > 1:
+            raise AssertionError(f"two leaders: {self.roles()}")
+        return leaders[0] if leaders else None
+
+    def caught_up(self, rid):
+        """The follower is proven and has applied the leader's visible
+        resource version."""
+        doc = self.status(rid)
+        lead = self.request("GET", "/durability")[1]
+        return bool(doc and doc["role"] == "follower" and doc["proven"]
+                    and doc["applied_rv"] >= int(lead.get("visible_rv")
+                                                 or 0))
+
+
+def ha_refusals(plane):
+    """Plain HTTP against a TLS replica is refused at the handshake, a
+    write without the token and a client with a wrong one get 401."""
+    import urllib.request
+
+    from volcano_tpu_torch.api import codec
+    from volcano_tpu_torch.api.queue import Queue
+    from volcano_tpu_torch.cache.remote_cluster import RemoteCluster, RemoteError
+    port = plane.ports[plane.leader]
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                    timeout=5):
+            plain = "accepted"
+    except OSError as e:
+        plain = type(e).__name__
+    write, _ = plane.request("POST", "/objects/queue",
+                             {"obj": codec.encode(Queue(name="no-token"))},
+                             token=False)
+    try:
+        RemoteCluster(plane.url, start_watch=False, token="wrong",
+                      ca_cert=plane.cert)
+        wrong = 200
+    except RemoteError as e:
+        wrong = e.code
+    out = dict(plain_http=plain, tokenless_write=write, wrong_token=wrong)
+    log(f"[ha] refusals: plain HTTP to {plane.leader} -> {plain}; a "
+        f"write without the token -> {write}; a client with a wrong token "
+        f"-> {wrong}")
+    if plain == "accepted" or write != 401 or wrong != 401:
+        raise AssertionError(f"the secured plane let through: {out}")
+    return out
+
+
+def ha_snapshot_pods(plane, url=None):
+    """{pod key: node} of the bound pods in a replica's /snapshot."""
+    _, _, pods, _, _ = wire_read(plane, url)
+    return {k: p.node_name for k, p in pods.items() if p.node_name}
+
+
+def ha_invariants(plane, node):
+    """phase_schedule's invariants over every backlog job the leader
+    holds (quiet: the caller logs)."""
+    _, _, pods, nodes, vcjobs = wire_read(plane)
+    jobs = [j for j in vcjobs.values() if j.name.startswith(("bk", "ha"))]
+    return backlog_invariants("[ha]", jobs, pods, nodes, node.name,
+                              quiet=True)
+
+
+def ha_free_capacity(plane, kubectl):
+    """Room for the kill batch: the backlog jobs that did not fit are
+    cancelled (as pending gangs they hold the enqueue budget), then
+    every pod of whole placed soft-topology gangs completes, largest
+    first, until HA_FREE_GPUS GPUs are free."""
+    from volcano_tpu_torch.api.resource import GPU
+    from volcano_tpu_torch.api.types import JobAction
+    _, _, pods, _, vcjobs = wire_read(plane)
+    owned = {}
+    for p in pods.values():
+        if p.node_name:
+            owned.setdefault(p.owner, []).append(p)
+    freed, done, withdrawn = 0.0, [], []
+    for job in sorted(vcjobs.values(), key=lambda j: (-j.min_available,
+                                                      j.name)):
+        if not job.name.startswith("bk"):
+            continue
+        mine = owned.get(job.uid, [])
+        if not mine:
+            # vcancel: the job controller terminates it and its pods
+            kubectl.add_command(job.key, JobAction.TERMINATE_JOB.value)
+            withdrawn.append(job.uid)
+            continue
+        if freed >= HA_FREE_GPUS or job.network_topology is not None or \
+                len(mine) != job.min_available or job.min_available < 4:
+            continue
+        for p in mine:
+            kubectl.complete_pod(p.key)
+        freed += sum(p.resource_requests().get(GPU) for p in mine)
+        done.append(job.name)
+    return done, freed, withdrawn
+
+
+def ha_leader_kill(plane, kubectl, node, smi, schedulers):
+    """kill -9 of the leader replica while binds flow: HA_KILL_GANGS
+    4-host gangs submitted into freed capacity and the leader killed at
+    their first bind, HA_KILL_GANGS more submitted through the group's
+    URLs after it.  The seconds to a new leader (the replicas' roles),
+    to kubectl's first acked write and to the scheduler's first bind
+    the new leader applied; every bind read acked before the kill read
+    back from the new leader and the surviving follower; the invariants
+    after every scheduler cycle until the gangs are placed."""
+    from volcano_tpu_torch.api.pod import Container, Pod
+    from volcano_tpu_torch.api.resource import GPU
+    from volcano_tpu_torch.api.vcjob import TaskSpec, VCJob
+    done, freed, withdrawn = ha_free_capacity(plane, kubectl)
+    gone = set(withdrawn)
+    plane.until(lambda: all(kubectl.vcjobs[f"default/{n}"].phase.value
+                            == "Completed" for n in done),
+                WIRE_TIMEOUT_S, "the finished jobs Completed")
+    plane.until(lambda: not any(p.owner in gone and not p.is_terminated()
+                                for p in kubectl.pods.values()),
+                WIRE_TIMEOUT_S, "the withdrawn jobs' pods gone")
+    from volcano_tpu_torch.api.queue import Queue
+    from volcano_tpu_torch.cache.remote_cluster import RemoteError
+    uids = set()
+    # a queue of their own: the backlog's two queues hold their shares
+    # (proportion's overused check)
+    kubectl.add_queue(Queue(name="ha", weight=1))
+
+    def submit(first):
+        for i in range(first, first + HA_KILL_GANGS):
+            job = VCJob(
+                name=f"ha{i:03d}", min_available=4, queue="ha",
+                tasks=[TaskSpec(name="worker", replicas=4, template=Pod(
+                    name="t", containers=[Container(requests={
+                        "cpu": 8, "memory": "32Gi", GPU: 8})]))])
+            # a new leader refuses writes (503, read-only) until a
+            # follower has joined it and the commit quorum holds: the
+            # write is retried, as the plane's own clients retry a cycle
+            while True:
+                try:
+                    uids.add(kubectl.add_vcjob(job).uid)
+                    break
+                except RemoteError as e:
+                    if e.code != 503 or time.monotonic() - t0 > \
+                            WIRE_TIMEOUT_S:
+                        raise
+                    time.sleep(HA_POLL_S)
+
+    def batch_bound():
+        return sum(1 for p in kubectl.pods.values()
+                   if p.owner in uids and p.node_name)
+    want = 8 * HA_KILL_GANGS
+    t0 = time.monotonic()
+    submit(0)
+    plane.until(batch_bound, WIRE_TIMEOUT_S, "the first gangs' first bind")
+    old = plane.leader
+    acked = ha_snapshot_pods(plane)
+    n_batch = sum(1 for k in acked if k.startswith("default/ha"))
+    t_wall, t0 = time.time(), time.monotonic()
+    plane.kill9(old)
+    leader = None
+    while leader is None:
+        if time.monotonic() - t0 > WIRE_TIMEOUT_S:
+            raise AssertionError(f"no new leader: {plane.roles()}")
+        time.sleep(HA_POLL_S)
+        leader = plane.find_leader()
+    election_s = time.monotonic() - t0
+    plane.leader = leader
+    term = plane.roles()[leader][1]
+    audit0 = plane.request("GET", "/audit")[1]["idx"]   # its audit on
+    submit(HA_KILL_GANGS)
+    write_s = time.monotonic() - t0
+    follower = next(r for r in HA_REPLICAS if r not in (old, leader))
+    seen, checks, last, changed_at, first_bind = set(), 0, None, 0, None
+    while True:
+        plane.check()
+        kubectl.tick()
+        cycles = sched_cycles(plane, schedulers)
+        if cycles not in seen:
+            seen.add(cycles)
+            ha_invariants(plane, node)
+            checks += 1
+        if first_bind is None:
+            recs = plane.request("GET", f"/audit?since={audit0}")[1]
+            stamps = [r["ts"] for r in recs["records"] if r["kind"] == "pod"
+                      and r.get("node") and r["ts"] > t_wall]
+            first_bind = min(stamps) - t_wall if stamps else None
+        created = sum(1 for p in kubectl.pods.values() if p.owner in uids)
+        bound = batch_bound()
+        if (created, bound) != last:
+            last, changed_at = (created, bound), cycles
+        if bound == want or (created == want and
+                             cycles >= changed_at + 2):
+            break
+        if time.monotonic() - t0 > WIRE_TIMEOUT_S:
+            raise AssertionError(
+                f"the gangs are still binding: {created} of {want} pods "
+                f"created, {bound} bound\n" + "\n".join(
+                    plane.tail(n) for n in plane.procs))
+        time.sleep(WIRE_POLL_S)
+    plane.until(lambda: plane.caught_up(follower), WIRE_TIMEOUT_S,
+                f"follower {follower} caught up")
+    lost = {}
+    for rid in (leader, follower):
+        now = ha_snapshot_pods(plane, plane.urls[rid])
+        lost[rid] = sorted(k for k, n in acked.items() if now.get(k) != n)
+    counts = ha_invariants(plane, node)
+    out = dict(killed=old, new_leader=leader, term=term,
+               election_s=election_s, kubectl_write_s=write_s,
+               scheduler_first_bind_s=first_bind, acked_binds=len(acked),
+               acked_gang_binds=n_batch, lost=lost, invariant_checks=checks,
+               gang_pods_bound=batch_bound(), finished_jobs=len(done),
+               withdrawn_jobs=len(withdrawn), freed_gpus=freed, **counts)
+    log(f"[ha] {len(withdrawn)} backlog jobs that did not fit cancelled, "
+        f"{len(done)} finished ({freed:g} GPUs freed), "
+        f"{HA_KILL_GANGS} 4-host gangs submitted; kill -9 of leader {old} "
+        f"at their first bind, after {len(acked)} acked binds ({n_batch} of "
+        f"those gangs): {leader} leads {election_s:.3f} s after the kill "
+        f"(term {term}); kubectl's first acked write after it (the next "
+        f"{HA_KILL_GANGS} gangs) {write_s:.3f} s, the scheduler's first "
+        f"bind {first_bind if first_bind is None else round(first_bind, 3)} "
+        f"s; {batch_bound()} of the {want} gang pods bound; the invariants "
+        f"held after each of {checks} scheduler cycles; acked binds lost "
+        f"on {leader} {len(lost[leader])}, on follower {follower} "
+        f"{len(lost[follower])} ({smi}; host times)")
+    if any(lost.values()) or first_bind is None or batch_bound() != want:
+        raise AssertionError(f"the leader's failover: {out}")
+    return out
+
+
+def ha_rejoin(plane, smi, rid):
+    """The killed replica restarted over its data dir with
+    --replicate-from auto: it comes back a follower and catches up."""
+    t0 = time.monotonic()
+    plane.start_replica(rid, follow="auto")
+    plane.until(lambda: plane.caught_up(rid), WIRE_TIMEOUT_S,
+                f"replica {rid} caught up")
+    rejoin_s = time.monotonic() - t0
+    doc = plane.status(rid)
+    mode = "full (snapshot bootstrap)" if doc["bootstraps"] else \
+        "delta (WAL tail)"
+    out = dict(replica=rid, role=doc["role"], term=doc["term"],
+               bootstraps=doc["bootstraps"], resync=mode, rejoin_s=rejoin_s,
+               applied_rv=doc["applied_rv"])
+    log(f"[ha] {rid} restarted: {doc['role']} at term {doc['term']}, "
+        f"caught up {rejoin_s:.3f} s after its start; resync {mode}, "
+        f"applied rv {doc['applied_rv']} ({smi}; host times)")
+    if doc["role"] != "follower" or plane.find_leader() == rid:
+        raise AssertionError(f"the rejoined replica: {out}")
+    return out
+
+
+def ha_scheduler_kill(plane, kubectl, node, smi):
+    """kill -9 of the scheduler holding the lease: the seconds until the
+    other holder binds a new job, and no pod bound twice over the
+    window (the leader's audit trail)."""
+    from volcano_tpu_torch.api.pod import Container, Pod, Toleration
+    from volcano_tpu_torch.api.queue import Queue
+    from volcano_tpu_torch.api.vcjob import TaskSpec, VCJob
+    holder = plane.request("GET", "/leases")[1]["scheduler"]["holder"]
+    other = "s2" if holder == "s1" else "s1"
+    before = ha_snapshot_pods(plane)
+    since = plane.request("GET", "/audit")[1]["idx"]
+    t0 = time.monotonic()
+    plane.kill9(f"scheduler-{holder}")
+    kubectl.add_queue(Queue(name="takeover", weight=1))
+    probe = kubectl.add_vcjob(VCJob(
+        name="takeover", min_available=1, queue="takeover",
+        tasks=[TaskSpec(name="worker", replicas=1, template=Pod(
+            name="t", node_selector={HOSTNAME_LABEL: node.name},
+            tolerations=[Toleration(key=LOCAL_TAINT, operator="Exists")],
+            containers=[Container(requests={"cpu": "100m"})]))]))
+    plane.until(lambda: any(p.owner == probe.uid and p.node_name
+                            for p in kubectl.pods.values()),
+                WIRE_TIMEOUT_S, "the standby scheduler's first bind")
+    takeover_s = time.monotonic() - t0
+    lease = plane.request("GET", "/leases")[1]["scheduler"]
+    state, binds, twice = dict(before), {}, []
+    recs = plane.request("GET", f"/audit?since={since}")[1]["records"]
+    for rec in recs:
+        if rec["kind"] != "pod" or "node" not in rec:
+            continue
+        key, now = rec["key"], rec["node"]
+        prev = state.get(key, "")
+        if now and not prev:
+            binds[key] = binds.get(key, 0) + 1
+        if now and (binds.get(key, 0) > 1 or (prev and now != prev)):
+            twice.append(key)
+        state[key] = now
+    out = dict(killed=holder, holder=lease["holder"], takeover_s=takeover_s,
+               binds_in_window=sum(binds.values()), bound_twice=twice)
+    log(f"[ha] kill -9 of scheduler {holder} (the lease's holder): "
+        f"{lease['holder']} holds the lease and bound a new job "
+        f"{takeover_s:.3f} s after the kill; {sum(binds.values())} bind(s) "
+        f"in the window, {len(twice)} pod(s) bound twice ({smi}; host "
+        "times)")
+    if lease["holder"] != other or twice:
+        raise AssertionError(f"the scheduler takeover: {out}")
+    return out
+
+
+def ha_agent(plane, kubectl, node, smi):
+    """The node-agent daemon's verdict on this machine's node, read from
+    the server, beside the GPU device nodes and torch's count; then the
+    daemon stopped, and its syncs and its record enforcer's ledger read
+    from its log."""
+    import glob
+
+    from volcano_tpu_torch.agent.agent import (AGENT_CORDONED_ANNOTATION,
+                                               CPU_USAGE_ANNOTATION,
+                                               GPU_CHIPS_ANNOTATION,
+                                               GPU_HEALTHY_LABEL,
+                                               OVERSUB_ANNOTATION)
+    plane.until(lambda: node.name in kubectl.slicehealthreports,
+                WIRE_TIMEOUT_S, "the agent daemon's health report")
+    time.sleep(HA_AGENT_SYNCS * WIRE_PERIOD_S)
+    kubectl.resync()
+    report = kubectl.slicehealthreports[node.name]
+    n = kubectl.nodes[node.name]
+    devices = sorted(glob.glob("/dev/nvidia[0-9]*"))
+    proc = plane.procs.pop("agent")
+    proc.send_signal(signal.SIGTERM)
+    proc.wait(timeout=30)
+    with open(plane.logs["agent"], errors="replace") as f:
+        text = f.read()
+    ran = re.findall(r"ran (\d+) cycles", text)
+    ledger = re.findall(r"record enforcer ledger: (.*)", text)
+    out = dict(verdict=report.verdict,
+               gpu_chips_detected=report.chips_detected,
+               gpu_chips_healthy=report.chips_healthy,
+               device_nodes=devices,
+               torch_device_count=torch.cuda.device_count(),
+               label=n.labels.get(GPU_HEALTHY_LABEL),
+               chips=n.annotations.get(GPU_CHIPS_ANNOTATION),
+               cpu_usage=n.annotations.get(CPU_USAGE_ANNOTATION),
+               oversubscription=n.annotations.get(OVERSUB_ANNOTATION),
+               cordoned=n.unschedulable or
+               AGENT_CORDONED_ANNOTATION in n.annotations,
+               syncs=int(ran[-1]) if ran else 0,
+               ledger=json.loads(ledger[-1]) if ledger else None,
+               exit_code=proc.returncode)
+    log(f"[ha] the node-agent daemon (collectors:local,gpu, enforcer "
+        f"record) on {node.name}: verdict {out['verdict']} over "
+        f"{out['syncs']} syncs, gpu_chips_detected "
+        f"{out['gpu_chips_detected']}, gpu_chips_healthy "
+        f"{out['gpu_chips_healthy']} (device nodes {devices}), "
+        f"torch.cuda.device_count() {out['torch_device_count']}; label "
+        f"{out['label']}, annotation {out['chips']}, cordoned "
+        f"{out['cordoned']}; the local collector's cpu usage "
+        f"{out['cpu_usage']}, oversubscription slack "
+        f"{out['oversubscription']}; the record enforcer's ledger "
+        f"{out['ledger']}")
+    if out["verdict"] != "Healthy" or out["label"] != "true" or \
+            out["cordoned"] or out["syncs"] < HA_AGENT_SYNCS or \
+            out["gpu_chips_healthy"] < out["torch_device_count"] or \
+            out["ledger"] is None or out["exit_code"] != 0:
+        raise AssertionError(f"the agent daemon's verdict: {out}")
+    return out
+
+
+def phase_ha(bootstrap, smi):
+    """The port's control plane over three TLS state-server replicas
+    with quorum commit and election: phase_wire's fleet and backlog
+    bound by two leader-elected schedulers, a vcjob run on this card,
+    the refusals of plain HTTP and of writes without the token, a
+    node-agent daemon's verdict on this machine's node, a kill -9 of the
+    leader replica while binds flow and its rejoin, and a kill -9 of the
+    leading scheduler."""
+    import pickle
+
+    from volcano_tpu_torch.api.queue import Queue
+    from volcano_tpu_torch.cache.remote_cluster import RemoteCluster
+    node = local_node()
+    workdir = tempfile.mkdtemp(prefix="vtp-ha-")
+    plane, kubectl, e2e = HaPlane(workdir), None, None
+    schedulers = (("scheduler-s1", "s1"), ("scheduler-s2", "s2"))
+    try:
+        t0 = time.monotonic()
+        fleet = gpu_fleet(node, HA_HOSTS)
+        for name, weight in (("research", 1), ("prod", 2)):
+            fleet.add_queue(Queue(name=name, weight=weight))
+        seed = os.path.join(workdir, "seed.pkl")
+        with open(seed, "wb") as f:
+            pickle.dump(fleet, f)
+        seed_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        plane.start_replica("r1", seed=seed)
+        for rid in HA_REPLICAS[1:]:
+            plane.start_replica(rid, follow=plane.urls["r1"])
+        plane.until(lambda: all(plane.caught_up(r) for r in HA_REPLICAS[1:]),
+                    WIRE_BOOT_S, "the followers' bootstrap")
+        boot_s = time.monotonic() - t0
+        log(f"[ha] {HA_HOSTS} hosts + this node seeded in {seed_s:.3f} s; "
+            f"three TLS replicas up, the followers bootstrapped "
+            f"{boot_s:.3f} s after the leader's start; roles "
+            f"{plane.roles()} ({smi}; host times)")
+        refusals = ha_refusals(plane)
+        kubectl = RemoteCluster(plane.url, token=plane.token,
+                                ca_cert=plane.cert)
+        if len(kubectl.nodes) != HA_HOSTS + 1:
+            raise AssertionError(f"the group holds {len(kubectl.nodes)} "
+                                 "nodes")
+        plane.start_client("controllers", "--components", "controllers",
+                           "--controllers", "job,queue")
+        plane.start_client("agent", "--components", "none", "--node-agents",
+                           node.name, "--usage-source",
+                           "collectors:local,gpu", "--enforcer", "record")
+        names = [n for n, _ in schedulers]
+        backlog = wire_backlog(plane, kubectl, node, smi, HA_JOBS, "[ha]",
+                               schedulers)
+        e2e = wire_end_to_end(plane, kubectl, node, bootstrap, smi, "[ha]")
+        agent = ha_agent(plane, kubectl, node, smi)
+        killed = plane.leader
+        failover = ha_leader_kill(plane, kubectl, node, smi, names)
+        rejoin = ha_rejoin(plane, smi, killed)
+        takeover = ha_scheduler_kill(plane, kubectl, node, smi)
+        e2e["injected"], e2e["launch_s"], e2e["result"] = \
+            e2e["worker"].result("[ha] end-to-end:")
+    finally:
+        if e2e is not None:
+            e2e["worker"].kill()
+        if kubectl is not None:
+            kubectl.close()
+        plane.stop()
+    shutil.rmtree(workdir, ignore_errors=True)
+    for k in ("job", "pod", "worker"):
+        e2e.pop(k)
+    return dict(replicas=list(HA_REPLICAS), commit_quorum=HA_QUORUM,
+                election_quorum=HA_QUORUM, hosts=HA_HOSTS, jobs=HA_JOBS,
+                seed_s=seed_s, boot_s=boot_s, refusals=refusals,
+                backlog=backlog, end_to_end=e2e, agent=agent,
+                leader_kill=failover, rejoin=rejoin,
+                scheduler_kill=takeover)
+
+
+# -- phase_partitioned: the keyspace-partitioned write plane ------------
+
+PART_GROUPS = 3         # leader groups of one TLS replica each
+PART_SHARDS = 2         # scheduler shards over the hypernode subtrees
+PART_HOSTS = SCHED_HOSTS // 4
+PART_JOBS = SCHED_JOBS // 4
+
+
+class PartPlane(WirePlane):
+    """The keyspace-partitioned write plane: PART_GROUPS state servers,
+    each a leader group of one TLS replica over its own durable data dir
+    with the bearer token, one certificate for all, and client processes
+    given the groups as `g1;g2;g3` (a PartitionedCluster each)."""
+
+    def __init__(self, workdir):
+        super().__init__(workdir)
+        self.use_tls()
+        self.groups = [f"https://127.0.0.1:{free_port()}"
+                       for _ in range(PART_GROUPS)]
+        self.url = ";".join(self.groups)
+
+    def server_url(self):
+        return self.groups[0]
+
+    def start_groups(self):
+        for i, url in enumerate(self.groups):
+            self.spawn(f"g{i}", "-m", "volcano_tpu_torch.server", "--port",
+                       url.rpartition(":")[2], "--data-dir",
+                       os.path.join(self.workdir, f"state-g{i}"),
+                       "--tls-cert", self.cert, "--tls-key", self.key,
+                       "--token-file", self.token_file)
+        for url in self.groups:
+            self.until(lambda u=url: self.healthy(u), WIRE_BOOT_S,
+                       f"{url}/healthz")
+
+    def read(self):
+        """Each group's stores of the kinds the checks read, decoded."""
+        from volcano_tpu_torch.api import codec
+        out = []
+        for url in self.groups:
+            code, snap = self.request("GET", "/snapshot", url=url)
+            if code != 200:
+                raise AssertionError(f"GET {url}/snapshot: {code}")
+            stores = snap["stores"]
+            out.append({kind: {k: codec.decode(v)
+                               for k, v in stores.get(kind, {}).items()}
+                        for kind in ("pod", "node", "vcjob", "queue",
+                                     "podgroup", "hypernode")})
+        return out
+
+
+def part_checks(plane, kubectl, node_names):
+    """tests/test_sharding.py's checks on the live plane: the layout
+    (every node in one group, no group empty), every bound pod held by
+    its node's group alone, the meta kinds on group 0 only, and a gang
+    across the groups bound as one /bind_batch a group."""
+    from volcano_tpu_torch.api.pod import make_pod
+    layout = kubectl.shard_layout()
+    stores = plane.read()
+    owner = {}
+    for i, st in enumerate(stores):
+        for name in st.get("node", {}):
+            if name in owner:
+                raise AssertionError(f"node {name} in groups {owner[name]} "
+                                     f"and {i}")
+            owner[name] = i
+    if sorted(owner) != sorted(node_names) or \
+            any(r["nodes"] == 0 for r in layout):
+        raise AssertionError(f"the layout: {layout}")
+    misplaced, relocated = [], 0
+    for i, st in enumerate(stores):
+        for key, pod in st.get("pod", {}).items():
+            if pod.node_name and owner.get(pod.node_name) != i:
+                misplaced.append(key)
+            elif pod.node_name and i != 0:
+                relocated += 1
+    # every server is born with the "default" queue; the plane writes
+    # none of its meta kinds past group 0
+    meta = {kind: len(stores[0].get(kind, {}))
+            for kind in ("queue", "podgroup", "vcjob", "hypernode")}
+    strays = {kind: [sum(1 for k in st.get(kind, {}) if k != "default")
+                     for st in stores[1:]] for kind in meta}
+    # a gang of one pod on a node of each group: one /bind_batch a group
+    calls = []
+    for g in kubectl.groups:
+        orig = g._request
+
+        def counting(method, path, *args, _orig=orig, _g=g, **kw):
+            if path == "/bind_batch":
+                calls.append(id(_g))
+            return _orig(method, path, *args, **kw)
+        g._request = counting
+    binds = []
+    for i, g in enumerate(kubectl.groups):
+        target = sorted(n for n, o in owner.items() if o == i)[0]
+        pod = make_pod(f"gang-g{i}", requests={"cpu": "100m"})
+        kubectl.add_pod(pod)
+        binds.append(("default", pod.name, target))
+    errs = kubectl.bind_pods(binds)
+    for g in kubectl.groups:
+        del g._request
+    for _, name, _ in binds:
+        kubectl.delete_pod(f"default/{name}")
+    out = dict(layout=[{k: r[k] for k in ("group", "nodes", "subtrees",
+                                          "meta")} for r in layout],
+               misplaced=misplaced, relocated_pods=relocated,
+               meta_kinds=meta, meta_kinds_off_group0=strays,
+               gang_binds=errs, gang_batches=len(calls),
+               gang_groups=len(set(calls)))
+    log(f"[partitioned] layout {out['layout']}; {relocated} bound pods "
+        f"relocated to their node's group, {len(misplaced)} misplaced; meta "
+        f"kinds on group 0 {meta}, on the others {strays}; a gang across "
+        f"the {PART_GROUPS} groups: binds {errs} in {len(calls)} "
+        f"/bind_batch call(s) to {len(set(calls))} group(s)")
+    if misplaced or not relocated or any(v for vs in strays.values()
+                                         for v in vs) or \
+            errs != [None] * PART_GROUPS or \
+            (len(calls), len(set(calls))) != (PART_GROUPS, PART_GROUPS):
+        raise AssertionError(f"the partitioned plane: {out}")
+    return out
+
+
+def phase_partitioned(smi):
+    """The keyspace-partitioned write plane: PART_GROUPS TLS leader
+    groups behind `--cluster-url "g1;g2;g3"`, PART_HOSTS simulated HGX
+    H100 hosts pushed through a PartitionedCluster (routed by NVLink
+    domain subtree), a controllers process and PART_SHARDS sharded
+    schedulers binding phase_schedule's mix (PART_JOBS vcjobs); the
+    sharding tests' checks on the live plane, `vtpctl shards` over it,
+    and binds a second and cycle ms."""
+    from volcano_tpu_torch.api.queue import Queue
+    from volcano_tpu_torch.cache.partitioned import PartitionedCluster
+    from volcano_tpu_torch.simulator import make_gpu_cluster
+    workdir = tempfile.mkdtemp(prefix="vtp-part-")
+    plane, kubectl = PartPlane(workdir), None
+    try:
+        t0 = time.monotonic()
+        plane.start_groups()
+        boot_s = time.monotonic() - t0
+        kubectl = PartitionedCluster(plane.url, token=plane.token,
+                                     ca_cert=plane.cert)
+        fleet = make_gpu_cluster(
+            [(f"hgx{i:04d}", "hgx-h100-8") for i in range(PART_HOSTS)],
+            ib_fabrics={f"hgx{i:04d}": f"su{i // SCHED_FABRIC_HOSTS:02d}"
+                        for i in range(PART_HOSTS)})
+        t0 = time.monotonic()
+        for n in fleet.nodes.values():
+            kubectl.add_node(n)
+        for hn in fleet.hypernodes.values():
+            kubectl.add_hypernode(hn)
+        for name, weight in (("research", 1), ("prod", 2)):
+            kubectl.add_queue(Queue(name=name, weight=weight))
+        push_s = time.monotonic() - t0
+        plane.until(lambda: len(kubectl.nodes) == PART_HOSTS, WIRE_TIMEOUT_S,
+                    "the mirrors' nodes")
+        log(f"[partitioned] {PART_GROUPS} TLS leader groups up in "
+            f"{boot_s:.3f} s; {PART_HOSTS} hosts and "
+            f"{len(fleet.hypernodes)} hypernodes pushed through the "
+            f"partitioned client in {push_s:.3f} s ({smi}; host times)")
+        audit0 = [plane.request("GET", "/audit", url=u)[1]["idx"]
+                  for u in plane.groups]
+        plane.start_client("controllers", "--components", "controllers",
+                           "--controllers", "job,queue")
+        jobs, t0 = [], time.monotonic()
+        for job in backlog_jobs(PART_JOBS):
+            jobs.append(kubectl.add_vcjob(job))
+        uids = {j.uid for j in jobs}
+        want = sum(j.total_replicas() for j in jobs)
+        plane.until(lambda: sum(1 for p in kubectl.pods.values()
+                                if p.owner in uids) == want,
+                    WIRE_TIMEOUT_S, f"the controllers' {want} pods")
+        names = [f"scheduler-{i}" for i in range(PART_SHARDS)]
+        for i, name in enumerate(names):
+            plane.start_client(name, "--components", "scheduler",
+                               "--shard-index", str(i), "--shard-count",
+                               str(PART_SHARDS))
+        t0 = time.monotonic()
+        last, changed_at = -1, 0
+        while True:
+            plane.check()
+            kubectl.tick()
+            cycles = min(series(plane.metrics(n),
+                                "e2e_scheduling_latency_seconds_count")
+                         for n in names)
+            bound = sum(1 for p in kubectl.pods.values()
+                        if p.owner in uids and p.node_name)
+            if bound != last:
+                last, changed_at = bound, cycles
+            if bound and cycles >= changed_at + 2:
+                break
+            if time.monotonic() - t0 > WIRE_TIMEOUT_S:
+                raise AssertionError(f"still binding after {WIRE_TIMEOUT_S} s")
+            time.sleep(WIRE_POLL_S)
+        stores = plane.read()
+        pods, nodes, vcjobs = {}, {}, {}
+        for st in stores:            # meta first: node groups override
+            pods.update(st.get("pod", {}))
+            nodes.update(st.get("node", {}))
+            vcjobs.update(st.get("vcjob", {}))
+        # a gang across the groups is bound one batch a group: where
+        # another shard won a group's GPUs first, that batch is refused
+        # and the others stand, so the gang is bound in part (the
+        # reference's semantics, ROADMAP C.9); each such gang must be one
+        # a shard's log shows refused as a cross-shard conflict
+        counts = backlog_invariants("[partitioned]",
+                                    [vcjobs[j.key] for j in jobs], pods,
+                                    nodes, "", partial_ok=True)
+        conflicts = {n: {o: series(plane.metrics(n),
+                                   "sched_cross_shard_conflicts_total",
+                                   outcome=o)
+                         for o in ("refused", "requeued")} for n in names}
+        refused = set()
+        for n in names:
+            with open(plane.logs[n], errors="replace") as f:
+                refused |= set(re.findall(
+                    r"bind failed for default/(\S+)-worker-\d+ on \S+: "
+                    r"cross-shard conflict", f.read()))
+        partial = counts["partial_gangs"]
+        log(f"[partitioned] {len(partial)} gang(s) bound in part, each "
+            f"after a cross-shard conflict: {partial}; the shards' "
+            f"conflicts {conflicts}, on {len(refused)} job(s)")
+        if set(partial) - refused:
+            raise AssertionError(f"gangs bound in part without a cross-"
+                                 f"shard conflict: {set(partial) - refused}")
+        stamps = []
+        keys = {k for k, p in pods.items() if p.owner in uids}
+        for url, since in zip(plane.groups, audit0):
+            stamps += bind_stamps(plane, since, keys, url)
+        span = max(stamps) - min(stamps)
+        per_shard = {n: (series(m, "e2e_scheduling_latency_seconds_count"),
+                         series(m, "e2e_scheduling_latency_seconds_sum"))
+                     for n, m in ((n, plane.metrics(n)) for n in names)}
+        cycle_ms = {n: 1e3 * s / max(c, 1) for n, (c, s) in per_shard.items()}
+        log(f"[partitioned] {PART_SHARDS} scheduler shards bound "
+            f"{counts['pods_bound']} pods of {counts['jobs_placed']} jobs, "
+            f"{counts['gpus_bound']:g} GPUs; the groups applied {len(stamps)} "
+            f"binds in {1e3 * span:.3f} ms ({len(stamps) / span:.1f} binds/s, "
+            f"first to last audit stamp); mean cycle ms by shard "
+            f"{ {n: round(v, 3) for n, v in cycle_ms.items()} } over "
+            f"{ {n: int(c) for n, (c, _) in per_shard.items()} } cycles "
+            f"({smi}; host times)")
+        if len(stamps) != counts["pods_bound"]:
+            raise AssertionError(f"{len(stamps)} binds audited for "
+                                 f"{counts['pods_bound']} bound pods")
+        checks = part_checks(plane, kubectl, list(fleet.nodes))
+        t0 = time.monotonic()
+        shards = subprocess.run(
+            [sys.executable, "-m", "volcano_tpu_torch.cli.vtpctl",
+             "--server", plane.url, "--token-file", plane.token_file,
+             "--ca-cert", plane.cert, "shards", "--shard-count",
+             str(PART_SHARDS), "--interval", "0.2"],
+            cwd=REPO, env=port_env(), capture_output=True, text=True,
+            timeout=CLI_CALL_S)
+        shards_s = time.monotonic() - t0
+        rows = cells(shards.stdout)
+        qps = [r for r in rows if r and r[0] in {str(i) for i in range(
+            PART_GROUPS)} and r[1:2] in (["meta+nodes"], ["nodes"])] if \
+            shards.returncode == 0 else []
+        log(f"[partitioned] vtpctl shards over the plane: rc "
+            f"{shards.returncode} in {shards_s:.3f} s:\n{shards.stdout}")
+        if shards.returncode != 0 or "OWNS" not in shards.stdout or \
+                "WRITE-QPS" not in shards.stdout or len(qps) != PART_GROUPS:
+            raise AssertionError(f"vtpctl shards: {shards.stderr[-2000:]}")
+    finally:
+        if kubectl is not None:
+            kubectl.close()
+        plane.stop()
+    shutil.rmtree(workdir, ignore_errors=True)
+    return dict(groups=PART_GROUPS, shards=PART_SHARDS, hosts=PART_HOSTS,
+                boot_s=boot_s, push_s=push_s,
+                binds=len(stamps), bind_span_ms=1e3 * span,
+                binds_per_s=len(stamps) / span, cycle_ms=cycle_ms,
+                cross_shard_conflicts=conflicts,
+                vtpctl_shards_s=shards_s, **counts, **checks)
 
 
 # -- phase_preempt: preemption and reclaim on the settled fleet ----------
@@ -2985,15 +3861,42 @@ print(json.dumps({"start": start, "losses": losses,
 """
 
 
+# the failover job's hosts: this machine's node and FAILOVER_SPARE, a
+# simulated HGX H100 host (an NVLink domain of its own) in an IB fabric
+# of its own, held cordoned until the second round
+FAILOVER_POOL_LABEL = "volcano-tpu.io/smoke-failover"
+FAILOVER_SPARE = "spare0000"
+FAILOVER_SPARE_HOST = f"{FAILOVER_SPARE}-w0"
+
+
 def failover_cluster(node):
-    """This machine's node (an NVLink domain of its own) beside one IB
-    fabric of SCHED_FABRIC_HOSTS HGX H100 hosts."""
+    """This machine's node (an NVLink domain of its own, labelled into
+    the failover pool) beside one IB fabric of SCHED_FABRIC_HOSTS HGX
+    H100 hosts, and FAILOVER_SPARE, cordoned, in the pool and in a
+    fabric of its own."""
+    from volcano_tpu_torch.api.pod import Taint
     from volcano_tpu_torch.simulator import make_gpu_cluster
-    return make_gpu_cluster(
-        [(f"hgx{i:04d}", "hgx-h100-8") for i in range(SCHED_FABRIC_HOSTS)],
-        ib_fabrics={f"hgx{i:04d}": "su00"
-                    for i in range(SCHED_FABRIC_HOSTS)},
+    node.labels[FAILOVER_POOL_LABEL] = "true"
+    cluster = make_gpu_cluster(
+        [(f"hgx{i:04d}", "hgx-h100-8") for i in range(SCHED_FABRIC_HOSTS)]
+        + [(FAILOVER_SPARE, "hgx-h100-8")],
+        ib_fabrics={**{f"hgx{i:04d}": "su00"
+                       for i in range(SCHED_FABRIC_HOSTS)},
+                    FAILOVER_SPARE: "su-spare"},
         extra_nodes=[node])
+    spare = cluster.nodes[FAILOVER_SPARE_HOST]
+    spare.labels[FAILOVER_POOL_LABEL] = "true"
+    spare.taints.append(Taint(key=LOCAL_TAINT, value="true"))
+    spare.unschedulable = True
+    cluster.put_object("node", spare)
+    return cluster
+
+
+def failover_pod(cluster, job):
+    """The job's one placed pod, or None."""
+    placed = [p for p in cluster.pods.values()
+              if p.owner == job.uid and p.node_name]
+    return placed[0] if len(placed) == 1 else None
 
 
 def failover_cycle(cluster, mgr, sched):
@@ -3010,7 +3913,12 @@ def phase_failover(bootstrap, smi):
     NVLink domain and stamps the last checkpoint step.  Once the host is
     healthy and the quarantine lifted, the job rebinds to the card and
     the port's worker resumes there at the stamped step; its loss is
-    held against the uninterrupted run's."""
+    held against the uninterrupted run's.  Then the second round:
+    FAILOVER_SPARE uncordoned and the card's host failed again, the
+    controller reschedules the job off the failed domain onto the spare
+    host, and its pod, with this script as the simulated host's kubelet,
+    resumes on this card; the controller's reschedule, resume and MTTR
+    each hold an observation."""
     from volcano_tpu_torch import metrics
     from volcano_tpu_torch.agent.agent import FakeUsageProvider, NodeAgent
     from volcano_tpu_torch.agent.handlers import GpuHealthHandler
@@ -3036,12 +3944,12 @@ def phase_failover(bootstrap, smi):
         job = e2e_job(node)
         job.name = "failover"
         job.annotations[CHECKPOINT_DIR_ANNOTATION] = ckpt
+        # either host of the pool; the spare is cordoned in round 1
+        job.tasks[0].template.node_selector = {FAILOVER_POOL_LABEL: "true"}
         job = cluster.add_vcjob(job)
 
         def pod_of():
-            placed = [p for p in cluster.pods.values()
-                      if p.owner == job.uid and p.node_name]
-            return placed[0] if len(placed) == 1 else None
+            return failover_pod(cluster, job)
 
         for _ in range(5):
             failover_cycle(cluster, mgr, sched)
@@ -3131,8 +4039,9 @@ def phase_failover(bootstrap, smi):
             f"to 4 decimals)")
         log(f"[failover] the controller's metrics (s): {observed}; it "
             "counts a reschedule only off the failed NVLink domain, and "
-            "this job can run on this card alone, so reschedule, resume "
-            "and MTTR stay unobserved; by this script's clock: fault to "
+            f"with {FAILOVER_SPARE} cordoned this job can run on this card "
+            "alone, so reschedule, resume and MTTR stay unobserved in this "
+            "round; by this script's clock: fault to "
             f"drained {t_drained - t_fault:.3f} s, drained to rebound "
             f"{t_rebound - t_drained:.3f} s, rebound to the worker's line "
             f"{t_resumed - t_rebound:.3f} s, fault to the worker's line "
@@ -3141,9 +4050,12 @@ def phase_failover(bootstrap, smi):
                 cluster.vcjobs[job.key].annotations.get(
                     FAILOVER_GENERATION_ANNOTATION) != "1":
             raise AssertionError("the resumed run is off")
+        off = failover_off_domain(cluster, mgr, sched, agent, provider, job,
+                                  node, bootstrap, straight, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return dict(first_launch_s=first_s, resumed_launch_s=resume_s,
+    return dict(off_domain=off, first_launch_s=first_s,
+                resumed_launch_s=resume_s,
                 cycles=cycles, stamped_step=int(stamped),
                 start_step=resumed["start_step"],
                 losses=straight["losses"], resumed_loss=resumed["loss"],
@@ -3152,6 +4064,82 @@ def phase_failover(bootstrap, smi):
                 drained_to_rebound_s=t_rebound - t_drained,
                 rebound_to_line_s=t_resumed - t_rebound,
                 fault_to_line_s=t_resumed - t_fault)
+
+
+def failover_off_domain(cluster, mgr, sched, agent, provider, job, node,
+                        bootstrap, straight, smi):
+    """The second round of phase_failover: FAILOVER_SPARE uncordoned, the
+    card's host failed again over the agent's K ticks, the controller
+    drains the job, and with the card quarantined and cordoned the job
+    rebinds to the spare host, off the failed NVLink domain: the
+    controller's reschedule, resume and MTTR observed.  The spare host
+    is simulated: this script, as its kubelet, runs the rebound pod on
+    this card, where the worker resumes at the stamped step."""
+    from volcano_tpu_torch import metrics
+    from volcano_tpu_torch.agent.handlers import GpuHealthHandler
+    from volcano_tpu_torch.api.slicehealth import RESUME_STEP_ANNOTATION
+    from volcano_tpu_torch.api.types import JobPhase
+    from volcano_tpu_torch.simulator import fail_host
+
+    def pod_of():
+        return failover_pod(cluster, job)
+    spare = cluster.nodes[FAILOVER_SPARE_HOST]
+    spare.unschedulable = False
+    cluster.put_object("node", spare)
+    names = ("detect", "drain", "reschedule", "resume", "mttr")
+    before = {n: len(metrics.get_observations(f"failover_{n}_seconds",
+                                              slice=node.name))
+              for n in names}
+    t_fault = time.monotonic()
+    fail_host(cluster, node.name, provider=provider, chips_healthy=0)
+    for _ in range(GpuHealthHandler.FAIL_SYNCS):
+        agent.sync()
+    cycles = 0
+    while cycles < FAILOVER_MAX_CYCLES and (
+            pod_of() is None or pod_of().node_name != FAILOVER_SPARE_HOST or
+            cluster.vcjobs[job.key].phase is not JobPhase.RUNNING):
+        failover_cycle(cluster, mgr, sched)
+        cycles += 1
+    # one more: the controller reads the pod Running the tick made
+    failover_cycle(cluster, mgr, sched)
+    t_rebound = time.monotonic()
+    moved = pod_of()
+    observed = {n: metrics.get_observations(f"failover_{n}_seconds",
+                                            slice=node.name)[before[n]:]
+                for n in names}
+    drains = [m for k, r, m in cluster.events if r == "FailoverDrain"]
+    stamped = cluster.vcjobs[job.key].annotations.get(RESUME_STEP_ANNOTATION)
+    log(f"[failover] round 2: {FAILOVER_SPARE_HOST} uncordoned, {node.name} "
+        f"failed again; after {cycles} cycle(s) the job is on "
+        f"{moved.node_name if moved else None} (off the failed NVLink "
+        f"domain {node.name}), {len(drains)} drains in all, resume step "
+        f"{stamped}; the controller's observations (s): {observed}")
+    if moved is None or moved.node_name != FAILOVER_SPARE_HOST or \
+            len(drains) != 2 or not all(observed[n] for n in
+                                        ("reschedule", "resume", "mttr")):
+        raise AssertionError("the failover off the failed domain is off")
+    spare_node = cluster.nodes[FAILOVER_SPARE_HOST]
+    _, resume_s, resumed = PodWorker(
+        moved, spare_node, bootstrap,
+        WORKER_STEPS=FAILOVER_STEPS - FAILOVER_RESUME).result(
+            f"[failover] round 2, {FAILOVER_SPARE_HOST} is a simulated host, "
+            "its pod run on this card:")
+    t_line = time.monotonic()
+    want = straight["losses"][str(FAILOVER_STEPS)]
+    rel = abs(resumed["loss"] - want) / abs(want)
+    log(f"[failover] round 2: step {FAILOVER_STEPS} loss {resumed['loss']} "
+        f"against the uninterrupted run's {want:.6f} (rel {rel:.2e}, "
+        f"tolerance {RTOL_FAILOVER:g}); by this script's clock: fault to "
+        f"rebound {t_rebound - t_fault:.3f} s, the worker {resume_s:.3f} s "
+        f"to its line, fault to the line {t_line - t_fault:.3f} s "
+        f"({smi}; host times)")
+    if resumed["start_step"] != int(stamped) or rel > RTOL_FAILOVER:
+        raise AssertionError("the resumed run off the failed domain is off")
+    return dict(host=FAILOVER_SPARE_HOST, cycles=cycles, controller_s=observed,
+                start_step=resumed["start_step"], resumed_loss=resumed["loss"],
+                rel_err=rel, launch_s=resume_s,
+                fault_to_rebound_s=t_rebound - t_fault,
+                fault_to_line_s=t_line - t_fault)
 
 
 # -- phase_cli: the operator's path through the port's CLI ---------------
@@ -3856,24 +4844,45 @@ def main() -> int:
     sp = phase_sp(model, train, tr)
     mo = phase_moe(model, train, moe, fa, flop_peak)
     pp = phase_pp(model, train, pipeline, fa, bootstrap, tr)
+    # each control-plane phase's wall s, by this process's clock
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t0 = time.monotonic()
+        out = fn(*args)
+        phase_s[name] = time.monotonic() - t0
+        log(f"[time] {name} {phase_s[name]:.1f} s ({smi}; host times)")
+        return out
+
     # the scheduling path launches no kernel in this process (its worker
     # trains the tiny f32 config with flash off, in a process of its own)
     zero_counts(fa)
-    sc, plane = phase_schedule(bootstrap)
-    sc["wire"] = phase_wire(bootstrap, smi)
+    sc, plane = timed("phase_schedule", phase_schedule, bootstrap)
+    sc["phase_s"] = phase_s
+    sc["wire"] = timed("phase_wire", phase_wire, bootstrap, smi)
     sc["kernel_launches"] = launch_counts(fa)
+    # nor do the secured, replicated plane and the partitioned write
+    # plane (their end-to-end worker runs in a process of its own)
+    zero_counts(fa)
+    sc["ha"] = timed("phase_ha", phase_ha, bootstrap, smi)
+    sc["partitioned"] = timed("phase_partitioned", phase_partitioned, smi)
+    sc["ha_partitioned_kernel_launches"] = launch_counts(fa)
+    if any(sc["ha_partitioned_kernel_launches"].values()):
+        raise AssertionError("the replicated or partitioned plane launched "
+                             "a kernel in this process")
     # preemption and failover launch none either (the resumed worker
     # trains the tiny f32 config, flash off, in its own process)
     zero_counts(fa)
-    sc["preempt"] = phase_preempt(plane, smi)
+    sc["preempt"] = timed("phase_preempt", phase_preempt, plane, smi)
     del plane
-    sc["failover"] = phase_failover(bootstrap, smi)
+    sc["failover"] = timed("phase_failover", phase_failover, bootstrap, smi)
     sc["preempt_failover_kernel_launches"] = launch_counts(fa)
     # nor do the operator's CLI and the federation tier (their workers
     # run in processes of their own)
     zero_counts(fa)
-    sc["cli"] = phase_cli(bootstrap, smi)
-    sc["federation"] = phase_federation(bootstrap, smi)
+    sc["cli"] = timed("phase_cli", phase_cli, bootstrap, smi)
+    sc["federation"] = timed("phase_federation", phase_federation, bootstrap,
+                             smi)
     sc["cli_federation_kernel_launches"] = launch_counts(fa)
     common = {"shape": list(SLICE_SHAPE), "dtype": "bfloat16",
               "causal": True, "card": smi,

@@ -54,23 +54,36 @@ def _side(pkg):
     m = lambda name: importlib.import_module(f"{pkg}.{name}")  # noqa: E731
     return types.SimpleNamespace(
         pkg=pkg, pod=m("api.pod"), vtpctl=m("cli.vtpctl"),
-        manifest=m("cli.manifest"), serve=m("server.state_server").serve)
+        manifest=m("cli.manifest"), codec=m("api.codec"),
+        serve=m("server.state_server").serve)
 
 
 REF, PORT = _side("volcano_tpu"), _side("volcano_tpu_torch")
 
 
+def _build_encode_plans(side):
+    """Every class's codec encode plan, built now: the codec mints a
+    uid the first time it encodes a class (it samples the class's
+    default factories once), so a side whose plans an earlier test in
+    this process built would mint fewer uids over the wire than the
+    other, and the uid-ordered ties would differ."""
+    side.codec._build_registry()
+    for cls in list(side.codec._CLASSES.values()):
+        side.codec._enc_plan(cls)
+
+
 @pytest.fixture(autouse=True)
 def _mirror_kinds(monkeypatch):
     """The port's `init` takes the reference's kind names for their
-    NVLink mirrors, both sides count uids from 1, and wall time
-    stands still."""
+    NVLink mirrors, both sides count uids from 1 with every encode
+    plan built, and wall time stands still."""
     from volcano_tpu_torch.api.devices.gpu import topology
     monkeypatch.setitem(topology.WELL_KNOWN, "v5e-16",
                         topology.DomainTopology("", H100, 4, 4))
     monkeypatch.setitem(topology.WELL_KNOWN, "v5e-4",
                         topology.DomainTopology("", H100, 1, 4))
     for side in (REF, PORT):
+        _build_encode_plans(side)
         monkeypatch.setattr(side.pod, "_uid_counter", itertools.count(1))
     # one stopped wall clock: the trace stamps and timestamps the
     # subcommands print are equal on both sides
@@ -416,3 +429,27 @@ def test_vtpctl_over_server(capsys, states, tmp_path):
         assert [j[0] for j in views[1]["jobs"]] == ["default/train"]
     finally:
         srv.close()
+
+
+def test_equal_uids_whichever_side_encoded_first(monkeypatch):
+    """What `test_vtpctl_over_server` leans on: an earlier test in the
+    same process that encoded over one side's codec (xdist runs whole
+    files on one worker) leaves that side's plans built, so it mints
+    one uid fewer per class than the other side; built plans on both
+    sides before the counters reset mint the same uids."""
+    def counts(build):
+        for side in (REF, PORT):
+            monkeypatch.setattr(side.codec, "_ENC_PLANS", {})
+        PORT.codec.encode(PORT.pod.make_pod("warm"))
+        out = []
+        for side in (REF, PORT):
+            if build:
+                _build_encode_plans(side)
+            monkeypatch.setattr(side.pod, "_uid_counter", itertools.count(1))
+            side.codec.encode(side.pod.make_pod("a"))
+            out.append(UID.sub(r"\1", side.pod.make_pod("b").uid))
+        return out
+
+    cold_ref, cold_port = counts(build=False)
+    assert cold_ref != cold_port        # the reference minted a plan's uid
+    assert counts(build=True) == ["uid-2"] * 2

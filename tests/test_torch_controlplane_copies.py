@@ -146,17 +146,23 @@ GPU_LAYER = {
                             "label in place of the DCN-pod label",
     "server.state_server": "the bind/put overcommit guard counts "
                            "nvidia.com/gpu in place of google.com/tpu; "
-                           "no change number in a comment",
+                           "no change number in a comment; a TLS "
+                           "replica's own URL says https (fault: its "
+                           "leader hints sent clients to plain HTTP)",
     "agentscheduler": "the fast path's device filter and score read the "
                       "gpu device in place of tpu",
     "__main__": "--usage-source names the gpu collector; SIGTERM "
                 "closes the cluster client, so a client retrying "
                 "against a dead server stops (fault: it outlived "
-                "SIGTERM)",
+                "SIGTERM); --enforcer record logs its ledger at exit "
+                "(it lived only in the daemon's memory)",
     "cache.remote_cluster": "the retry back-off waits on the client's "
                             "stop event, so close() ends a call that "
                             "is retrying against a dead server (fault: "
-                            "it slept its whole retry budget)",
+                            "it slept its whole retry budget); a watch "
+                            "whose replica fails asks the next one "
+                            "(fault: the mirror stayed on a dead "
+                            "replica)",
     "server.replication": "promote bumps the epoch before it publishes "
                           "the leader role, and refuses votes in "
                           "between as a leader does (fault: a reader "

@@ -262,6 +262,7 @@ def main(argv=None) -> int:
 
     usage_source = None
     node_agents = {}
+    shared_enforcer = None
     if args.node_agents:
         from volcano_tpu_torch.agent import FakeUsageProvider, NodeAgent
 
@@ -459,6 +460,13 @@ def main(argv=None) -> int:
         elif args.state and not remote:
             log.warning("exiting on error: NOT overwriting %s",
                         args.state)
+    from volcano_tpu_torch.agent.enforcer import RecordingEnforcer
+    if isinstance(shared_enforcer, RecordingEnforcer):
+        # --enforcer record keeps its ledger in this process: the one
+        # place an operator can read it is the daemon's log
+        import json
+        log.info("record enforcer ledger: %s",
+                 json.dumps(shared_enforcer.log, default=str))
     if remote:
         # bind/evict history lives on the server, not in the mirror
         log.info("ran %d cycles", cycles)

@@ -479,6 +479,11 @@ class RemoteCluster(Cluster):
                               "mirror will go stale until "
                               "reconfigured", e)
                     return
+                if len(self.endpoints) > 1:
+                    # the long-poll asks one replica; with retries off
+                    # nothing else moves it, and a dead replica would
+                    # hold the mirror stale for good: ask the next one
+                    self._reroute(True, e)
                 # FULL jitter, floored at any Retry-After the server
                 # sent: a read-only (healing) server told every
                 # mirror when to come back — spreading the retries

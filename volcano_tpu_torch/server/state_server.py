@@ -1604,8 +1604,12 @@ def serve(port: int = 0, cluster: Optional[FakeCluster] = None,
         # the listener is up: peers can reach us, the tail/watchdog
         # threads may start
         if not replication.self_url:
+            # the scheme the listener speaks: the URL goes out as the
+            # leader hint of every follower 503 and as a candidate's
+            # campaign address, and a TLS listener refuses plain HTTP
+            scheme = "https" if tls_cert else "http"
             replication.self_url = \
-                f"http://127.0.0.1:{httpd.server_address[1]}"
+                f"{scheme}://127.0.0.1:{httpd.server_address[1]}"
         replication.start()
     state.tick_stop = threading.Event()
     if tick_period > 0:

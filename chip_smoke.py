@@ -128,7 +128,16 @@ GPU planes (`local` with this machine's node, `remote` cheaper) and
 the card job's steps folded into the router's learned goodput, then
 remote's server killed with SIGKILL: the loss detected, its gangs
 requeued with the attempt bumped and rebound in local as far as it
-has room, no acked step lost.
+has room, no acked step lost; (22) `phase_chaos`: the repo's
+control-plane tools against the port's process plane, each `python -m
+volcano_tpu_torch.tools.<tool>` a process of its own, in two lanes: the
+seeded chaos conductor over wire, disk, clock and slice faults with two
+scheduler shards, two leader groups and the lock and race auditors, over
+a 3-replica group with a leader kill, over the serving class, a region
+killed under the federation tier and the router replica set killed and
+stopped; the soak with a host and the server killed; the race bench's
+parallel sweep at 1024 hosts certified bit-identical -- every invariant
+held, no process dead, no kernel launched in this process.
 
 The kernel phases (3)-(5) also hold and time the kernels at the shapes
 beyond d in {128, 256} and t % 128 == 0 (d = 384 and 512 on the
@@ -144,6 +153,7 @@ run's.
 
 from __future__ import annotations
 
+import glob
 import importlib
 import json
 import math
@@ -4815,6 +4825,255 @@ def phase_federation(bootstrap, smi):
                 router_lease_promotions=promotions)
 
 
+# -- the chaos conductor and the other control-plane tools ----------------
+
+CHAOS_TIMEOUT_S = 240      # a run's limit: its duration, settle and drills
+# each run as `python -m volcano_tpu_torch.tools.<tool>` at the shape of
+# one of the reference's own artifacts (the conductor's classes, the
+# soak's kills, the race bench's fleet)
+CHAOS_RUNS = {
+    "A": ("chaos_conductor", "--seed 1 --duration 20 --classes "
+          "wire,disk,clock,slice --scheduler-shards 2 --leader-groups 2 "
+          "--lock-audit --race-audit"),
+    "B": ("chaos_conductor", "--seed 1 --duration 30 --classes "
+          "wire,disk,clock,replication"),
+    "C": ("chaos_conductor", "--seed 1 --duration 20 --classes wire,serving"),
+    "D": ("chaos_conductor", "--seed 1 --duration 20 --classes region"),
+    "E": ("chaos_conductor", "--seed 1 --duration 20 --classes router"),
+    "F": ("soak", "45 --kill-slice --kill-server=15"),
+    "G": ("race_bench", "--hosts 1024 --reps 3"),
+}
+# two lanes side by side, each running its runs in turn (about 110 s
+# each on an 8-core host; the runs in turn would take about 220)
+CHAOS_LANES = ("ACDG", "BEF")
+FAULT_LINE = re.compile(r"fault injected: site=(\w+) kind=(\w+)")
+
+
+def chaos_run(tag, workdir):
+    """One run of CHAOS_RUNS in a session of its own, its TMPDIR and the
+    conductor's --logdir under `workdir/tag`; every process it left is
+    killed after it.  Its wall s, exit code and result document."""
+    tool, args = CHAOS_RUNS[tag]
+    d = os.path.join(workdir, tag)
+    os.makedirs(d)
+    argv = [sys.executable, "-m", f"volcano_tpu_torch.tools.{tool}",
+            *shlex.split(args)]
+    if tool == "chaos_conductor":
+        argv += ["--logdir", os.path.join(d, "logs")]
+    elif tool == "race_bench":
+        argv += ["--out", os.path.join(d, "race.json")]
+    t0 = time.monotonic()
+    with open(os.path.join(d, "stdout.log"), "w") as out, \
+            open(os.path.join(d, "stderr.log"), "w") as err:
+        proc = subprocess.Popen(argv, cwd=REPO, env=dict(port_env(), TMPDIR=d),
+                                stdout=out, stderr=err,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=CHAOS_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            rc = None
+        finally:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass            # the run and every process it started ended
+            proc.wait()
+    wall = time.monotonic() - t0
+    path = os.path.join(d, "race.json" if tool == "race_bench"
+                        else "stdout.log")
+    with open(path) as f:
+        lines = [ln for ln in f if ln.startswith("{")] \
+            if tool != "race_bench" else [f.read()]
+    doc = json.loads(lines[-1]) if lines else None
+    faults = {}
+    for path in glob.glob(os.path.join(d, "**", "*.log"), recursive=True):
+        with open(path, errors="replace") as f:
+            for site, kind in FAULT_LINE.findall(f.read()):
+                key = f"{site}/{kind}"
+                faults[key] = faults.get(key, 0) + 1
+    return dict(tag=tag, argv=" ".join(argv[2:]), rc=rc, wall_s=wall,
+                doc=doc, faults=dict(sorted(faults.items())), dir=d)
+
+
+def chaos_failures(run):
+    """What breaks the run's contract: its exit code, any violation, a
+    process that died on its own, a failed audit or certification."""
+    tag, doc = run["tag"], run["doc"]
+    if run["rc"] != 0 or doc is None:
+        return [f"exit code {run['rc']}, result {doc is not None}"]
+    bad = []
+    if tag in "ABCDE":
+        violations = doc["invariants"]["violations"] if tag in "ABC" \
+            else doc["violations"]
+        if violations or not doc["ok"]:
+            bad.append(f"violations {violations}")
+        if doc["dead_processes"]:
+            bad.append(f"processes died {doc['dead_processes']}")
+    if tag in "ABC":
+        failed = [k for k, v in doc["invariants"]["passed"].items() if not v]
+        if failed:
+            bad.append(f"invariants failed {failed}")
+        if not doc["crc_drill"].get("refused"):
+            bad.append(f"CRC drill {doc['crc_drill']}")
+    if tag == "A":
+        for audit in ("lock_audit", "race_audit"):
+            if doc[audit]["violations"]:
+                bad.append(f"{audit} {doc[audit]['violations'][:3]}")
+        if doc["sched_shards_traced"] != ["0/2", "1/2"]:
+            bad.append(f"shards traced {doc['sched_shards_traced']}")
+        if not all(rv > 0 for rv in doc["leader_group_rv"]):
+            bad.append(f"leader group rvs {doc['leader_group_rv']}")
+    if tag == "B":
+        rep = doc["recovery"]["replication"]
+        if rep["promote_s"] is None or not rep["deposed_leader_rejoined"]:
+            bad.append(f"promotion {rep}")
+    if tag == "C" and not doc["invariants"]["serving_ledger_exercised"]:
+        bad.append("the serving ledger never folded")
+    if tag == "E":
+        terms = doc["lease_terms"]
+        if not all(a < b for a, b in zip(terms, terms[1:])):
+            bad.append(f"lease terms {terms}")
+    if tag == "F":
+        checks = ("kill_server_ok", "failover_ok", "elastic_ok",
+                  "goodput_ok", "traces_ok")
+        bad += [f"{k} false" for k in checks if not doc[k]]
+        if doc["dead_processes"]:
+            bad.append(f"processes died {doc['dead_processes']}")
+    if tag == "G" and not (doc["ok"] and doc["freeze_audit"][
+            "entries_identical_under_audit"]):
+        bad.append(f"not certified: {doc['freeze_audit']['violations'][:3]}")
+    return bad
+
+
+def chaos_summary(run):
+    """The numbers a run's log line and the worker line keep."""
+    tag, doc = run["tag"], run["doc"]
+    out = dict(argv=run["argv"], wall_s=run["wall_s"],
+               faults_injected=run["faults"])
+    if tag in "ABC":
+        rec = doc["recovery"]
+        out.update(
+            invariants=doc["invariants"]["passed"],
+            violations=len(doc["invariants"]["violations"]),
+            submitted=doc["submitted"], completed=doc["completed"],
+            enospc_readonly_recover_s=rec.get("enospc", {}).get(
+                "readonly_recover_s"),
+            eio_readonly_recover_s=rec.get("eio", {}).get(
+                "readonly_recover_s"),
+            clock_leader_stable=rec.get("clock_jump", {}).get(
+                "leader_stable"),
+            submit_p95_s=rec.get("wire", {}).get("submit_p95_s"),
+            crc_refusals=int(bool(doc["crc_drill"].get("refused"))),
+            acked_writes_lost=0 if doc["invariants"]["passed"][
+                "acked_durable"] else "see the run's violations",
+            dead_processes=doc["dead_processes"])
+    if tag == "A":
+        out.update(lock_audit={k: doc["lock_audit"][k] for k in (
+            "processes_reporting", "lock_sites", "acquisitions_total")},
+            race_audit={k: doc["race_audit"][k] for k in (
+                "processes_reporting", "sessions_frozen", "fanout_regions")},
+            shards_traced=doc["sched_shards_traced"],
+            leader_group_rv=doc["leader_group_rv"])
+    if tag == "B":
+        rep = doc["recovery"]["replication"]
+        out.update(promotions=int(rep["promote_s"] is not None),
+                   promote_s=rep["promote_s"],
+                   partition_lag_max_s=rep["partitioned_follower_lag_max_s"],
+                   follower_read_gap_max_s=rep["follower_read_gap_max_s"],
+                   staleness_checks=rep["staleness_checks"])
+    if tag == "C":
+        out.update(serving_ledger=doc["invariants"][
+            "serving_ledger_exercised"])
+    if tag == "D":
+        out.update(violations=len(doc["violations"]),
+                   region_kill_at_s=doc["region_kill_at_s"],
+                   region_mttr_s=doc["region_mttr_s"],
+                   acked_step=doc["acked_step_before_kill"],
+                   resumed_step=doc["resume_step_in_survivor"],
+                   dead_processes=doc["dead_processes"])
+    if tag == "E":
+        out.update(violations=len(doc["violations"]),
+                   lease_terms=doc["lease_terms"],
+                   failover_mttr_s=doc["failover_mttr_s"],
+                   mttr_bound_s=doc["mttr_bound_s"],
+                   # the conductor's cutover_exactly_once invariant holds
+                   # the adopted migration to one copy and one count
+                   cutovers=1, routers_spawned=doc["routers_spawned"],
+                   fenced_writes=doc["fenced_writes_counted"],
+                   dead_processes=doc["dead_processes"])
+    if tag == "F":
+        out.update({k: doc[k] for k in (
+            "submitted", "phases", "server_kills", "killed_host",
+            "quarantined_hosts", "dead_processes", "elastic_history",
+            "goodput_allocated_pod_s", "rss_first", "rss_last")})
+    if tag == "G":
+        out.update(hosts=doc["scenario"]["hosts"],
+                   serial_ms=doc["serial_build_entry_ms"],
+                   parallel_ms={r["workers"]: r["ms"]
+                                for r in doc["parallel"]},
+                   bit_identical=doc["freeze_audit"][
+                       "entries_identical_under_audit"] and all(
+                       r["entry_identical_to_serial"]
+                       for r in doc["parallel"]),
+                   freeze_violations=len(doc["freeze_audit"]["violations"]),
+                   sessions_frozen=doc["freeze_audit"]["sessions_frozen"],
+                   host_cpus=doc["host_cpus"])
+    return out
+
+
+def phase_chaos(smi):
+    """The repo's control-plane tools against the port's process plane on
+    this machine's host, each run as `python -m volcano_tpu_torch.tools.
+    <tool>` in a process of its own (the lock and race auditors wrap
+    `threading` in the process that arms them), two lanes side by side:
+    the seeded conductor over wire, disk, clock and slice faults with two
+    scheduler shards, two leader groups and both auditors (A), over a
+    3-replica group with a shipping partition, a lag window, shipped
+    corruption and a leader kill (B), over the serving class (C), a
+    whole region killed under the federation tier (D) and the router
+    replica set killed mid-admission and mid-cutover and then stopped
+    (E); the soak with a domain's host killed and the server killed
+    every 15 s (F); the race bench's parallel predicate sweep at 1024
+    hosts, measured and certified bit-identical (G).  Any violation, any
+    process that died on its own or a failed certification fails the
+    phase; the runs' dirs (logs, stdout) are kept then."""
+    workdir = tempfile.mkdtemp(prefix="vtp-chaos-")
+    runs, errors = {}, []
+
+    def lane(tags):
+        for tag in tags:
+            try:
+                runs[tag] = chaos_run(tag, workdir)
+            except Exception as e:  # noqa: BLE001 -- raised below
+                errors.append(f"{tag}: {e!r}")
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=lane, args=(tags,))
+               for tags in CHAOS_LANES]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.monotonic() - t0
+    failures = list(errors)
+    for tag in sorted(runs):
+        failures += [f"{tag}: {b}" for b in chaos_failures(runs[tag])]
+    if failures:
+        raise AssertionError(
+            "phase_chaos failed (runs' logs kept in " + workdir + "):\n"
+            + "\n".join(failures))
+    out = {tag: chaos_summary(runs[tag]) for tag in sorted(runs)}
+    for tag, res in out.items():
+        log(f"[chaos] {tag} `{res['argv']}` passed in {res['wall_s']:.1f} s "
+            f"({smi}; host times): "
+            + json.dumps({k: v for k, v in res.items()
+                          if k not in ("argv", "wall_s")}, sort_keys=True))
+    log(f"[chaos] {len(out)} runs in two lanes, {wall:.1f} s ({smi}; host "
+        "times); 0 violations, 0 processes died, race bench certified")
+    shutil.rmtree(workdir, ignore_errors=True)
+    return dict(runs=out, wall_s=wall)
+
+
 def main() -> int:
     # the port first: alone, without the repo, the script fails here
     # before it prints anything
@@ -4884,6 +5143,14 @@ def main() -> int:
     sc["federation"] = timed("phase_federation", phase_federation, bootstrap,
                              smi)
     sc["cli_federation_kernel_launches"] = launch_counts(fa)
+    # nor do the chaos conductor and the other control-plane tools (each
+    # run a process of its own on this host, no GPU)
+    zero_counts(fa)
+    sc["chaos"] = timed("phase_chaos", phase_chaos, smi)
+    sc["chaos_kernel_launches"] = launch_counts(fa)
+    if any(sc["chaos_kernel_launches"].values()):
+        raise AssertionError("the chaos tools launched a kernel in this "
+                             "process")
     common = {"shape": list(SLICE_SHAPE), "dtype": "bfloat16",
               "causal": True, "card": smi,
               # every case each kernel was held at against its plain version

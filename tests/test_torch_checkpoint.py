@@ -6,7 +6,6 @@ both sides."""
 
 import json
 import os
-import socket
 import subprocess
 import sys
 
@@ -19,16 +18,11 @@ from volcano_tpu_torch.workloads import checkpoint
 from volcano_tpu_torch.workloads import model as tm
 from volcano_tpu_torch.workloads import train as tt
 from volcano_tpu_torch.workloads import worker as tworker
+from torch_procs import AGENT_STORE_ENV, rendezvous
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROC_TIMEOUT_S = 150    # a subprocess's limit; its group's is shorter
 RANK_TIMEOUT_S = 60
-
-
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def run_procs(argvs, envs):
@@ -256,13 +250,13 @@ dist.destroy_process_group()
 
 
 def _rank_ckpt(mode, ckpt, world):
-    port = free_port()
-    outs = run_procs(
-        [[sys.executable, "-c", RANK_CKPT, mode, ckpt, str(RANK_TIMEOUT_S)]
-         for _ in range(world)],
-        [base_env(TPU_WORKER_ID=r, NUM_PROCESSES=world,
-                  COORDINATOR_ADDRESS=f"127.0.0.1:{port}")
-         for r in range(world)])
+    with rendezvous() as port:
+        outs = run_procs(
+            [[sys.executable, "-c", RANK_CKPT, mode, ckpt,
+              str(RANK_TIMEOUT_S)] for _ in range(world)],
+            [base_env(TPU_WORKER_ID=r, NUM_PROCESSES=world,
+                      COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                      **AGENT_STORE_ENV) for r in range(world)])
     for rc, _, err in outs:
         assert rc == 0, err[-3000:]
     return [o.strip().splitlines()[-1] for _, o, _ in outs]

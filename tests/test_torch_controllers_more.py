@@ -19,6 +19,7 @@ step, and the restarted ranks resume from that step.  Their losses
 after the resume equal an uninterrupted run's within 1e-5 relative.
 """
 
+import contextlib
 import itertools
 import json
 import os
@@ -459,7 +460,8 @@ def test_failover_resumes_a_killed_gloo_job_at_the_stamped_step(tmp_path):
     the other domain.  Its ranks resume from the checkpoint at step 4
     (the port's worker too, `start_step` 4), and their losses for steps
     5 and 6 equal an uninterrupted run's within 1e-5 relative."""
-    from test_torch_worker import free_port, rank_env
+    from test_torch_worker import rank_env
+    from torch_procs import rendezvous
     sh = PORT.m("api.slicehealth")
     sim = PORT.m("simulator")
     ckpt = str(tmp_path / "ckpt")
@@ -469,10 +471,13 @@ def test_failover_resumes_a_killed_gloo_job_at_the_stamped_step(tmp_path):
         sh.CHECKPOINT_DIR_ANNOTATION: ckpt}))
     p.cycle(4)
     assert p.cluster.vcjobs["default/train"].phase.value == "Running"
-    pods, envs = _pods_env(p, "default/train", free_port())
+    # each group of ranks meets at a store of its own, held to the end
+    stores = contextlib.ExitStack()
+    pods, envs = _pods_env(p, "default/train",
+                           stores.enter_context(rendezvous()))
     assert envs[0]["VTP_CHECKPOINT_DIR"] == ckpt
     log = open(tmp_path / "ranks.log", "w")
-    port = free_port()
+    port = stores.enter_context(rendezvous())
     straight = _rank_procs([rank_env(r, 2, port) for r in range(2)],
                            (6, 0, 0, tmp_path / "straight.json"), log)
     first = _rank_procs(envs, (6, 2, 5, tmp_path / "first.json"), log)
@@ -496,13 +501,15 @@ def test_failover_resumes_a_killed_gloo_job_at_the_stamped_step(tmp_path):
         assert job.annotations[sh.FAILOVER_GENERATION_ANNOTATION] == "1"
         reasons = [r for _, r, _ in p.cluster.events]
         assert reasons.count("FailoverDrain") == 1
-        pods2, envs2 = _pods_env(p, "default/train", free_port())
+        pods2, envs2 = _pods_env(p, "default/train",
+                                 stores.enter_context(rendezvous()))
         assert {q.node_name.split("-w")[0] for q in pods2} == \
             {"sb" if failed_domain == "sa" else "sa"}
         assert all(e["VTP_RESUME_STEP"] == "4" for e in envs2)
         resumed = _rank_procs(envs2, (6, 0, 0, tmp_path / "resumed.json"),
                               log)
-        _, envs3 = _pods_env(p, "default/train", free_port())
+        _, envs3 = _pods_env(p, "default/train",
+                             stores.enter_context(rendezvous()))
         worker = [subprocess.Popen(
             [sys.executable, "-m", "volcano_tpu_torch.workloads.worker"],
             env=e, cwd=REPO_DIR, text=True, stdout=subprocess.PIPE,
@@ -518,6 +525,7 @@ def test_failover_resumes_a_killed_gloo_job_at_the_stamped_step(tmp_path):
                 q.kill()
                 q.wait()
         log.close()
+        stores.close()
     want = _read(tmp_path / "straight.json")
     got = _read(tmp_path / "resumed.json")
     assert got["start"] == 4 and sorted(got["losses"]) == ["5", "6"]

@@ -84,7 +84,77 @@ NEW = {
 
 # the port's own modules whose counterparts live outside the reference
 # package, by their path in the repo
-NEW_OUTSIDE = {"analysis.vtplint": "tools/vtplint.py"}
+NEW_OUTSIDE = {
+    "analysis.vtplint": "tools/vtplint.py",
+    "tools.__init__": "tools/__init__.py",
+    "tools.chaoslib": "tools/chaoslib.py",
+    "tools.chaos_conductor": "tools/chaos_conductor.py",
+    "tools.chaos": "tools/chaos.py",
+    "tools.chaos_leader": "tools/chaos_leader.py",
+    "tools.chaos_partition": "tools/chaos_partition.py",
+    "tools.soak": "tools/soak.py",
+    "tools.trace_report": "tools/trace_report.py",
+    "tools.race_bench": "tools/race_bench.py",
+    "tools.fuzz_sweep": "tools/fuzz_sweep.py",
+    "tools.fedfleet": "bench.py",
+    "tools.churn": "tests/test_fuzz_scheduler.py",
+}
+
+# a reference tool becomes its port under these renames: the package,
+# the tools' own package (imports, paths and usage lines) and the repo
+# root, one directory further up
+TOOL_RENAMES = (
+    (r"\bvolcano_tpu\b", "volcano_tpu_torch"),
+    (r"python tools/(\w+)\.py", r"python -m volcano_tpu_torch.tools.\1"),
+    (r"\btools/(\w+)\.py", r"volcano_tpu_torch/tools/\1.py"),
+    (r"\bfrom tools import\b", "from volcano_tpu_torch.tools import"),
+    (r"os\.path\.dirname\(os\.path\.dirname\((\s*)"
+     r"os\.path\.abspath\(__file__\)\)\)",
+     r"os.path.dirname(os.path.dirname(os.path.dirname(\1"
+     r"os.path.abspath(__file__))))"),
+)
+
+# NEW_OUTSIDE module -> why it differs from its counterpart after the
+# renames (a tool missing here must equal its reference tool)
+OUTSIDE_CHANGES = {
+    "analysis.vtplint": "the linter's entry point over the port's tree",
+    "tools.__init__": "the package's docstring",
+    "tools.chaoslib": "the chaos gang asks nvidia.com/gpu and the torch "
+                      "plugin, its units are NVLink domains of 4 hosts x "
+                      "4 GPUs (`domain`), the overcommit audit counts "
+                      "GPUs; the zoo tells a process that died on its "
+                      "own from one a drill killed (`died`); no "
+                      "JAX_PLATFORMS in the plane's env",
+    "tools.chaos_conductor": "the long elastic and serving gangs ask "
+                             "nvidia.com/gpu and the torch plugin; the "
+                             "federation classes run on fedfleet, not "
+                             "bench.py; the read-QPS row seeds an NVLink "
+                             "domain; every result names the processes "
+                             "that died on their own (dead_processes); "
+                             "logs under the temp dir; no change number "
+                             "in a help text",
+    "tools.chaos": "logs under the temp dir; no result of the "
+                   "reference's machine in the docstring",
+    "tools.chaos_leader": "logs under the temp dir; no result of the "
+                          "reference's machine in the docstring",
+    "tools.chaos_partition": "logs under the temp dir; no change "
+                             "number in the docstring",
+    "tools.soak": "NVLink domains, gangs in nvidia.com/gpu with the "
+                  "torch plugin; logs under the temp dir; no result "
+                  "of the reference's machine or issue number in the "
+                  "docstring",
+    "tools.race_bench": "make_gpu_cluster of HGX H100 hosts, a pod "
+                        "takes a host's 8 GPUs; the static pass over "
+                        "the port's package; the report in the temp "
+                        "dir by default (not over the reference's "
+                        "artifact); no issue number in the docstring",
+    "tools.fuzz_sweep": "the episode from tools.churn, not tests/",
+    "tools.fedfleet": "bench.py's federation fleet and its helpers "
+                      "alone, with the GPU layer; the fleet names the "
+                      "processes that died on their own (`died`)",
+    "tools.churn": "the reference test's churn_episode and its "
+                   "invariants alone, on the mirrored GPU cluster",
+}
 
 # module -> why it differs from the reference beyond the rename
 GPU_LAYER = {
@@ -115,6 +185,10 @@ GPU_LAYER = {
                        "keyed by NVLink domain",
     "api.devices.__init__": "imports GPUDevices in place of TPUDevices",
     "cache.cache": "registers the gpu device in place of tpu",
+    "cache.fake_cluster": "a podgroup status flush keeps the serving "
+                          "fold's monotone ledgers, as a put does "
+                          "(fault: a stale flush rewound the serving "
+                          "request ledger)",
     "actions.elastic": "slices are NVLink domains in IB fabrics, counted "
                        "in nvidia.com/gpu",
     "actions.topology_alloc": "docstring: NVLink/IB tiers",
@@ -166,7 +240,10 @@ GPU_LAYER = {
     "server.replication": "promote bumps the epoch before it publishes "
                           "the leader role, and refuses votes in "
                           "between as a leader does (fault: a reader "
-                          "saw role == leader with the old epoch); no "
+                          "saw role == leader with the old epoch); a "
+                          "caught-up follower's lag is the age of its "
+                          "last proof (fault: it claimed 0 while its "
+                          "next poll stalled on a dead link); no "
                           "change numbers for the WAL and the chaos "
                           "engine",
     "uthelper": "comment: a prebuilt cluster from "
@@ -255,11 +332,44 @@ def test_gpu_layer_module_differs(module):
         f"{module} equals the reference: drop it from GPU_LAYER/WORDING"
 
 
-@pytest.mark.parametrize("module", sorted(NEW_OUTSIDE))
+def _tool_renamed(text):
+    for pattern, repl in TOOL_RENAMES:
+        text = re.sub(pattern, repl, text)
+    return text
+
+
+def test_outside_changes_name_outside_modules():
+    assert set(OUTSIDE_CHANGES) <= set(NEW_OUTSIDE)
+    assert all(OUTSIDE_CHANGES.values())
+
+
+@pytest.mark.parametrize("module", sorted(OUTSIDE_CHANGES))
 def test_new_module_differs_from_its_counterpart(module):
-    want = RENAME.sub("volcano_tpu_torch",
-                      (REPO / NEW_OUTSIDE[module]).read_text())
-    assert _path(PORT, module).read_text() != want
+    want = _tool_renamed((REPO / NEW_OUTSIDE[module]).read_text())
+    assert _path(PORT, module).read_text() != want, \
+        f"{module} equals its counterpart: drop it from OUTSIDE_CHANGES"
+
+
+@pytest.mark.parametrize("module", sorted(set(NEW_OUTSIDE)
+                                          - set(OUTSIDE_CHANGES)))
+def test_tool_equals_reference_after_rename(module):
+    want = _tool_renamed((REPO / NEW_OUTSIDE[module]).read_text())
+    assert _path(PORT, module).read_text() == want, \
+        f"{module} drifted from its reference tool (or belongs in " \
+        "OUTSIDE_CHANGES)"
+
+
+def test_tool_rename_maps_paths_and_imports():
+    text = ("from tools import chaoslib\n"
+            "python tools/chaos.py; see tools/soak.py and volcano_tpu/x\n"
+            "REPO = os.path.dirname(os.path.dirname(\n"
+            "    os.path.abspath(__file__)))\n")
+    assert _tool_renamed(text) == (
+        "from volcano_tpu_torch.tools import chaoslib\n"
+        "python -m volcano_tpu_torch.tools.chaos; see "
+        "volcano_tpu_torch/tools/soak.py and volcano_tpu_torch/x\n"
+        "REPO = os.path.dirname(os.path.dirname(os.path.dirname(\n"
+        "    os.path.abspath(__file__))))\n")
 
 
 def _control_plane_files():

@@ -15,7 +15,6 @@ the same kinds.  Tolerance: exact.
 import json
 import os
 import signal
-import socket
 import subprocess
 import sys
 import threading
@@ -34,16 +33,11 @@ from volcano_tpu_torch.server.durability import (DurableStore,
                                                  WALCorruptionError)
 from volcano_tpu_torch.server.state_server import StateServer, serve
 from volcano_tpu_torch.simulator import domain_nodes
+from torch_procs import free_port
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PRODUCT = "NVIDIA-H100-80GB-HBM3"
 GRACE_S = 2.0        # SIGTERM grace before SIGKILL in teardown
-
-
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def wait_for(cond, timeout=20.0, msg="condition"):

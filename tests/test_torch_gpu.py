@@ -22,7 +22,6 @@ import glob
 import importlib
 import json
 import os
-import socket
 import subprocess
 import sys
 import time
@@ -34,6 +33,7 @@ import torch
 from volcano_tpu_torch.workloads import model as tm
 from volcano_tpu_torch.workloads import train as tt
 from volcano_tpu_torch.workloads import worker as tworker
+from torch_procs import free_port
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROC_TIMEOUT_S = 300
@@ -91,12 +91,6 @@ TOL_BF16 = 1e-2
 # state, plus the norms (replicated on every rank), plus 1% of the
 # replicated state for the batch and the allocator's rounding
 MEMORY_MARGIN = 0.01
-
-
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _gpus(n):

@@ -50,7 +50,8 @@ import urllib.request
 
 import pytest
 
-from test_torch_multiprocess import free_port, wait_for
+from test_torch_multiprocess import wait_for
+from torch_procs import free_port
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H100 = "NVIDIA-H100-80GB-HBM3"

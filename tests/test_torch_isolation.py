@@ -1,6 +1,7 @@
 """The port stands alone: nothing under volcano_tpu_torch/, nor
 chip_smoke.py, imports jax, the libraries built on it (optax, orbax,
-flax) or the JAX package (volcano_tpu)."""
+flax), the JAX package (volcano_tpu), or the repo's other top-level
+code: the reference's tools, its bench and the tests."""
 
 import ast
 import os
@@ -15,7 +16,8 @@ FILES = sorted((REPO / "volcano_tpu_torch").rglob("*.py")) + \
     [REPO / "chip_smoke.py"]
 
 
-FORBIDDEN = ("jax", "optax", "orbax", "flax", "volcano_tpu")
+FORBIDDEN = ("jax", "optax", "orbax", "flax", "volcano_tpu", "tools",
+             "bench", "tests")
 
 
 def _forbidden(module: str) -> bool:
@@ -45,6 +47,10 @@ def test_forbidden_prefix_rule():
     assert _forbidden("flax.linen")
     assert not _forbidden("volcano_tpu_torch.workloads")
     assert not _forbidden("jaxlib_like")
+    assert _forbidden("tools") and _forbidden("tools.chaoslib")
+    assert _forbidden("bench") and _forbidden("tests.test_fuzz_scheduler")
+    assert not _forbidden("volcano_tpu_torch.tools.chaoslib")
+    assert not _forbidden("benchmark")
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -122,6 +128,13 @@ def test_control_plane_loads_neither_torch_nor_jax():
             "import volcano_tpu_torch.federation\n"
             "import volcano_tpu_torch.federation.router\n"
             "import volcano_tpu_torch.federation.slo\n"
+            "import volcano_tpu_torch.tools.chaoslib\n"
+            "import volcano_tpu_torch.tools.chaos_conductor\n"
+            "import volcano_tpu_torch.tools.fedfleet\n"
+            "import volcano_tpu_torch.tools.churn\n"
+            "import volcano_tpu_torch.tools.trace_report\n"
+            "import volcano_tpu_torch.tools.race_bench\n"
+            "import volcano_tpu_torch.workloads.progress\n"
             "from volcano_tpu_torch.analysis import registry\n"
             "assert not registry.check_all()\n"
             f"roots = {FORBIDDEN + ('torch',)!r}\n"

@@ -21,7 +21,8 @@ from torch.distributed.tensor import Replicate, Shard
 from test_torch_sp import _assert_ranks_match, _jax_mesh, _jax_step
 from test_torch_train import _flat, _np_tree, _three_steps, _tokens
 from test_torch_worker import (PROC_TIMEOUT_S, RANK_TIMEOUT_S, REPO,
-                               free_port, rank_env)
+                               rank_env)
+from torch_procs import rendezvous
 from volcano_tpu.workloads import model as jm
 from volcano_tpu.workloads import moe as jmoe
 from volcano_tpu.workloads import train as jt
@@ -310,24 +311,25 @@ def ep_runs(tmp_path_factory):
         batch = jt.synthetic_batch(jax.random.key(1), cfg, 4, 32, mesh)
         np.savez(folder / f"init{i}.npz", tokens=np.asarray(batch["tokens"]),
                  **dict(_flat(jax.tree.map(np.asarray, params))))
-    port = free_port()
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", RANK_CASES, json.dumps(EP_CASES), str(STEPS),
-         str(folder), str(RANK_TIMEOUT_S)],
-        env=rank_env(r, WORLD, port, TPU_SLICE_ID=r * 2 // WORLD),
-        cwd=REPO, text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
-        for r in range(WORLD)]
-    try:
-        jax_runs = [_jax_step(axes, flags, STEPS, 4, 32)
-                    for axes, flags in EP_CASES]
-        for p in procs:
-            _, err = p.communicate(timeout=PROC_TIMEOUT_S)
-            assert p.returncode == 0, err[-3000:]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
+    with rendezvous() as port:
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", RANK_CASES, json.dumps(EP_CASES),
+             str(STEPS), str(folder), str(RANK_TIMEOUT_S)],
+            env=rank_env(r, WORLD, port, TPU_SLICE_ID=r * 2 // WORLD),
+            cwd=REPO, text=True, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE)
+            for r in range(WORLD)]
+        try:
+            jax_runs = [_jax_step(axes, flags, STEPS, 4, 32)
+                        for axes, flags in EP_CASES]
+            for p in procs:
+                _, err = p.communicate(timeout=PROC_TIMEOUT_S)
+                assert p.returncode == 0, err[-3000:]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
     return [(run, [dict(np.load(folder / f"out{i}.rank{r}.npz"))
                    for r in range(WORLD)])
             for i, run in enumerate(jax_runs)]

@@ -24,7 +24,6 @@ test pins both.
 import json
 import os
 import signal
-import socket
 import subprocess
 import sys
 import time
@@ -42,18 +41,13 @@ from volcano_tpu_torch.api.vcjob import TaskSpec, VCJob
 from volcano_tpu_torch.cache.remote_cluster import RemoteCluster
 from volcano_tpu_torch.simulator import domain_nodes
 from volcano_tpu_torch.workloads import bootstrap as tboot
+from torch_procs import free_port
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PRODUCT = "NVIDIA-H100-80GB-HBM3"
 GRACE_S = 2.0
 CONTRACT = {tboot.ENV_WORKER_ID, tboot.ENV_HOSTNAMES, tboot.ENV_COORDINATOR,
             tboot.ENV_NUM_PROCESSES}
-
-
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def wait_for(cond, timeout=20.0, msg="condition"):

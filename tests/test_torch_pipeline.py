@@ -6,6 +6,7 @@ pp 2 over slices (2 x 2) against JAX's `make_pipelined_train_step` on 4
 virtual devices.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -20,7 +21,8 @@ from torch.distributed.tensor import Replicate, Shard
 
 from test_torch_train import _flat, _np_tree
 from test_torch_worker import (PROC_TIMEOUT_S, RANK_TIMEOUT_S, REPO, SHARE,
-                               _assert_stepped_params, free_port, rank_env)
+                               _assert_stepped_params, rank_env)
+from torch_procs import rendezvous
 from volcano_tpu.workloads import model as jm
 from volcano_tpu.workloads import pipeline as jpipe
 from volcano_tpu.workloads import train as jt
@@ -151,10 +153,11 @@ dist.destroy_process_group()
 
 
 def _spawn(script, argvs, slices=1):
-    """`script` on WORLD gloo ranks with per-rank argv; the Popen objects
-    (the caller waits)."""
-    port = free_port()
-    return [subprocess.Popen(
+    """`script` on WORLD gloo ranks with per-rank argv: the group's
+    store and the Popen objects (the caller waits with `_wait`)."""
+    store = contextlib.ExitStack()
+    port = store.enter_context(rendezvous())
+    return store, [subprocess.Popen(
         [sys.executable, "-c", script, *argv],
         env=rank_env(r, WORLD, port,
                      **({"TPU_SLICE_ID": r * slices // WORLD}
@@ -163,7 +166,7 @@ def _spawn(script, argvs, slices=1):
         for r, argv in enumerate(argvs)]
 
 
-def _wait(procs):
+def _wait(store, procs):
     try:
         for p in procs:
             _, err = p.communicate(timeout=PROC_TIMEOUT_S)
@@ -173,6 +176,7 @@ def _wait(procs):
             if p.poll() is None:
                 p.kill()
                 p.communicate()
+        store.close()
 
 
 @pytest.fixture(scope="module")
@@ -189,9 +193,10 @@ def pipe_run(tmp_path_factory):
         .astype(np.int32)
     np.savez(folder / "in.npz", tokens=tokens, positions=positions,
              per_sample=per_sample, **dict(_flat(_np_tree(jp))))
-    procs = _spawn(RANK_PIPE, [[str(folder / "in.npz"),
-                                str(folder / f"rank{r}.npz"),
-                                str(RANK_TIMEOUT_S)] for r in range(WORLD)])
+    store, procs = _spawn(RANK_PIPE, [[str(folder / "in.npz"),
+                                       str(folder / f"rank{r}.npz"),
+                                       str(RANK_TIMEOUT_S)]
+                                      for r in range(WORLD)])
     try:
         x = jp["embed"].astype(cfg.dtype)[jnp.asarray(tokens)]
         want = {}
@@ -205,7 +210,7 @@ def pipe_run(tmp_path_factory):
         want["loss"] = float(loss)
         want["grads"] = _np_tree(grads)
     finally:
-        _wait(procs)
+        _wait(store, procs)
     return [dict(np.load(folder / f"rank{r}.npz")) for r in range(WORLD)], \
         want
 
@@ -341,14 +346,14 @@ def pp_runs(tmp_path_factory):
     for i in range(len(PP_CASES)):
         np.savez(folder / f"init{i}.npz", tokens=tokens,
                  **dict(_flat(_np_tree(jp))))
-    procs = _spawn(RANK_PP_STEPS, [[json.dumps(PP_CASES), str(folder),
-                                    str(STEPS), str(RANK_TIMEOUT_S)]] * WORLD,
-                   slices=2)
+    store, procs = _spawn(RANK_PP_STEPS,
+                          [[json.dumps(PP_CASES), str(folder), str(STEPS),
+                            str(RANK_TIMEOUT_S)]] * WORLD, slices=2)
     try:
         runs = [_jax_pp_run(stages, slices, jp, tokens)
                 for stages, slices in PP_CASES]
     finally:
-        _wait(procs)
+        _wait(store, procs)
     return [(run, [dict(np.load(folder / f"out{i}.rank{r}.npz"))
                    for r in range(WORLD)])
             for i, run in enumerate(runs)]

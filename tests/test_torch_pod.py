@@ -19,7 +19,8 @@ import pytest
 import torch
 
 from test_torch_worker import (PRINTED, SHARE, _one_process_loss, _schedule,
-                               free_port, pod_env)
+                               pod_env)
+from torch_procs import rendezvous
 from volcano_tpu.api.goodput import PROGRESS_DIR_ANNOTATION
 from volcano_tpu.api.pod import Container, Pod
 from volcano_tpu.api.resource import TPU
@@ -99,20 +100,21 @@ def test_group_by_slice_keeps_a_pods_ranks(slice_ids):
 def _run_pods(pods):
     """Launch one worker process a pod, each seeing LOCAL devices; waits
     for all.  Returns [(returncode, stdout, stderr)]."""
-    port = free_port()
     procs = []
-    try:
-        for pod in pods:
-            env = pod_env(pod, port)
-            env["WORKER_LOCAL_DEVICES"] = str(LOCAL)
-            procs.append(subprocess.Popen(
-                [sys.executable, "-m", "volcano_tpu_torch.workloads.worker"],
-                env=env, cwd=REPO, text=True, stdout=subprocess.PIPE,
-                stderr=subprocess.PIPE, start_new_session=True))
-        return [_finish(p) for p in procs]
-    finally:
-        for p in procs:
-            _kill_group(p)
+    with rendezvous() as port:
+        try:
+            for pod in pods:
+                env = pod_env(pod, port)
+                env["WORKER_LOCAL_DEVICES"] = str(LOCAL)
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m",
+                     "volcano_tpu_torch.workloads.worker"],
+                    env=env, cwd=REPO, text=True, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, start_new_session=True))
+            return [_finish(p) for p in procs]
+        finally:
+            for p in procs:
+                _kill_group(p)
 
 
 def _finish(p):

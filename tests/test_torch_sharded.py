@@ -18,8 +18,9 @@ import torch
 from torch.distributed.tensor import Replicate, Shard
 
 from test_torch_worker import (RANK_TIMEOUT_S, SHARE,
-                               _assert_stepped_params, _flat, free_port,
-                               rank_env, run_procs)
+                               _assert_stepped_params, _flat, rank_env,
+                               run_procs)
+from torch_procs import rendezvous
 from volcano_tpu.workloads import mesh as jmesh
 from volcano_tpu.workloads import model as jm
 from volcano_tpu.workloads import train as jt
@@ -163,15 +164,15 @@ def test_four_rank_sharded_step_matches_jax_mesh(axes, tmp_path):
     init, tokens, losses, norms, final, grads, shards = _jax_run(axes)
     src = tmp_path / "init.npz"
     np.savez(src, tokens=tokens, **dict(_flat(init)))
-    port = free_port()
     slices = axes.get("dcn", 1)
-    outs = run_procs(
-        [[sys.executable, "-c", RANK_SHARDED, str(src),
-          str(tmp_path / f"rank{r}.npz"), json.dumps(axes),
-          str(RANK_TIMEOUT_S)] for r in range(WORLD)],
-        [rank_env(r, WORLD, port, **(
-            {"TPU_SLICE_ID": r * slices // WORLD} if slices > 1 else {}))
-         for r in range(WORLD)])
+    with rendezvous() as port:
+        outs = run_procs(
+            [[sys.executable, "-c", RANK_SHARDED, str(src),
+              str(tmp_path / f"rank{r}.npz"), json.dumps(axes),
+              str(RANK_TIMEOUT_S)] for r in range(WORLD)],
+            [rank_env(r, WORLD, port, **(
+                {"TPU_SLICE_ID": r * slices // WORLD} if slices > 1
+                else {})) for r in range(WORLD)])
     for rc, _, err in outs:
         assert rc == 0, err[-3000:]
     ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(WORLD)]
@@ -244,14 +245,14 @@ dist.destroy_process_group()
 def _rank_dcp(mode, ckpt, axes, flags=None):
     world = int(np.prod(list(axes.values())))
     slices = axes.get("dcn", 1)
-    port = free_port()
-    outs = run_procs(
-        [[sys.executable, "-c", RANK_DCP, mode, ckpt, json.dumps(axes),
-          str(RANK_TIMEOUT_S), json.dumps(flags or {})]
-         for _ in range(world)],
-        [rank_env(r, world, port, **(
-            {"TPU_SLICE_ID": r * slices // world} if slices > 1 else {}))
-         for r in range(world)])
+    with rendezvous() as port:
+        outs = run_procs(
+            [[sys.executable, "-c", RANK_DCP, mode, ckpt, json.dumps(axes),
+              str(RANK_TIMEOUT_S), json.dumps(flags or {})]
+             for _ in range(world)],
+            [rank_env(r, world, port, **(
+                {"TPU_SLICE_ID": r * slices // world} if slices > 1
+                else {})) for r in range(world)])
     for rc, _, err in outs:
         assert rc == 0, err[-3000:]
     return dict(np.load(ckpt + f".{mode}.npz"))

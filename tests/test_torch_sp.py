@@ -19,8 +19,9 @@ import pytest
 from jax.sharding import PartitionSpec as P
 
 from test_torch_worker import (RANK_TIMEOUT_S, SHARE,
-                               _assert_stepped_params, _flat, free_port,
-                               rank_env, run_procs)
+                               _assert_stepped_params, _flat, rank_env,
+                               run_procs)
+from torch_procs import rendezvous
 from volcano_tpu.workloads import mesh as jmesh
 from volcano_tpu.workloads import model as jm
 from volcano_tpu.workloads import train as jt
@@ -53,14 +54,15 @@ def _run_ranks(script, axes, *args):
     rank's npz as a dict."""
     world = _world(axes)
     slices = axes.get("dcn", 1)
-    port = free_port()
     dst = args[-1]
-    outs = run_procs(
-        [[sys.executable, "-c", script, json.dumps(axes), *map(str, args[:-1]),
-          f"{dst}.rank{r}.npz", str(RANK_TIMEOUT_S)] for r in range(world)],
-        [rank_env(r, world, port, **(
-            {"TPU_SLICE_ID": r * slices // world} if slices > 1 else {}))
-         for r in range(world)])
+    with rendezvous() as port:
+        outs = run_procs(
+            [[sys.executable, "-c", script, json.dumps(axes),
+              *map(str, args[:-1]), f"{dst}.rank{r}.npz", str(RANK_TIMEOUT_S)]
+             for r in range(world)],
+            [rank_env(r, world, port, **(
+                {"TPU_SLICE_ID": r * slices // world} if slices > 1 else {}))
+             for r in range(world)])
     for rc, _, err in outs:
         assert rc == 0, err[-3000:]
     return [dict(np.load(f"{dst}.rank{r}.npz")) for r in range(world)]

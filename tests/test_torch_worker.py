@@ -8,7 +8,6 @@ as 2-process gloo groups (WORKER_DEVICE=cpu, one rank a process).
 
 import json
 import os
-import socket
 import subprocess
 import sys
 import types
@@ -40,6 +39,7 @@ from volcano_tpu_torch.workloads import model as tm
 from volcano_tpu_torch.workloads import progress as tprogress
 from volcano_tpu_torch.workloads import train as tt
 from volcano_tpu_torch.workloads import worker as tworker
+from torch_procs import AGENT_STORE_ENV, rendezvous
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # every subprocess gets this long to finish; its process group's own
@@ -65,16 +65,12 @@ RTOL_PARAM = 1e-6
 PRINTED = 5e-5
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def rank_env(rank, world, port, **extra):
+    """A rank process's env, meeting its group at the store `port` of a
+    `rendezvous()` block."""
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
                TPU_WORKER_ID=str(rank), NUM_PROCESSES=str(world),
-               COORDINATOR_ADDRESS=f"127.0.0.1:{port}")
+               COORDINATOR_ADDRESS=f"127.0.0.1:{port}", **AGENT_STORE_ENV)
     env.update({k: str(v) for k, v in extra.items()})
     return env
 
@@ -86,7 +82,7 @@ def pod_env(pod, port):
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     env.update(pod.containers[0].env)
     env.update(COORDINATOR_ADDRESS=f"127.0.0.1:{port}", WORKER_STEPS="2",
-               WORKER_DEVICE="cpu")
+               WORKER_DEVICE="cpu", **AGENT_STORE_ENV)
     return env
 
 
@@ -408,14 +404,14 @@ def test_two_rank_train_step_matches_jax_mesh(axes, tmp_path):
     init, tokens, losses, norms, final, grads = _jax_three_steps(axes)
     src = tmp_path / "init.npz"
     np.savez(src, tokens=tokens, **dict(_flat(init)))
-    port = free_port()
     extra = [dict(TPU_SLICE_ID=r) for r in range(2)] if "dcn" in axes \
         else [{}, {}]
-    outs = run_procs(
-        [[sys.executable, "-c", RANK_TRAIN, str(src),
-          str(tmp_path / f"rank{r}.npz"), json.dumps(axes),
-          str(RANK_TIMEOUT_S)] for r in range(2)],
-        [rank_env(r, 2, port, **extra[r]) for r in range(2)])
+    with rendezvous() as port:
+        outs = run_procs(
+            [[sys.executable, "-c", RANK_TRAIN, str(src),
+              str(tmp_path / f"rank{r}.npz"), json.dumps(axes),
+              str(RANK_TIMEOUT_S)] for r in range(2)],
+            [rank_env(r, 2, port, **extra[r]) for r in range(2)])
     for rc, _, err in outs:
         assert rc == 0, err[-3000:]
     ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(2)]
@@ -504,10 +500,10 @@ def _one_process_loss(global_batch, steps):
 
 
 def _launch_workers(pods):
-    port = free_port()
-    outs = run_procs([[sys.executable, "-m",
-                       "volcano_tpu_torch.workloads.worker"]] * len(pods),
-                     [pod_env(pod, port) for pod in pods])
+    with rendezvous() as port:
+        outs = run_procs([[sys.executable, "-m",
+                           "volcano_tpu_torch.workloads.worker"]] * len(pods),
+                         [pod_env(pod, port) for pod in pods])
     results = []
     for rc, out, err in outs:
         assert rc == 0, f"worker failed:\n{err[-2000:]}"
@@ -604,15 +600,15 @@ def test_four_rank_workers_match_one_process(slices):
     """Four gloo ranks with a global batch of 4: the flat mesh (dp 4) and
     the hybrid one (2 slices of fsdp 2, ranks grouped by TPU_SLICE_ID)
     both report the loss of one process on the whole batch."""
-    port = free_port()
     extra = dict(WORKER_DEVICE="cpu", WORKER_GLOBAL_BATCH=4, WORKER_STEPS=2)
     if slices > 1:
         extra.update(TPU_NUM_SLICES=slices)
-    outs = run_procs(
-        [[sys.executable, "-m", "volcano_tpu_torch.workloads.worker"]] * 4,
-        [rank_env(r, 4, port, **extra, **(
-            {"TPU_SLICE_ID": r * slices // 4} if slices > 1 else {}))
-         for r in range(4)])
+    with rendezvous() as port:
+        outs = run_procs(
+            [[sys.executable, "-m", "volcano_tpu_torch.workloads.worker"]] * 4,
+            [rank_env(r, 4, port, **extra, **(
+                {"TPU_SLICE_ID": r * slices // 4} if slices > 1 else {}))
+             for r in range(4)])
     results = []
     for rc, out, err in outs:
         assert rc == 0, err[-2000:]

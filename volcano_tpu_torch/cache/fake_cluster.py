@@ -727,6 +727,10 @@ class FakeCluster(Cluster):
             cur = self.podgroups.get(pg.key)
             if cur is not None:
                 self._apply_goodput_stick(pg, cur)
+                # and the serving fold's, as put_object does: without
+                # it a stale flush rewound the serving request ledger
+                # (the conductor's serving_monotonic violation)
+                self._apply_serving_stick(pg, cur)
             self.podgroups[pg.key] = pg
         self._notify("podgroup", pg)
 

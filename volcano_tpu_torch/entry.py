@@ -13,8 +13,8 @@ passes `device="cpu"`, and raise without a GPU otherwise.
 
 from __future__ import annotations
 
+import os
 import queue
-import socket
 import sys
 import traceback
 from typing import Dict
@@ -216,6 +216,8 @@ def _dryrun_rank(rank: int, n: int, port: int, device: str, out) -> None:
         env = {"TPU_WORKER_ID": str(rank), "NUM_PROCESSES": str(n),
                "COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
                "LOCAL_RANK": str(rank)}
+        # the store is the parent's: this rank joins it as a client
+        os.environ[bootstrap.ENV_AGENT_STORE] = "True"
         bootstrap.initialize(env, device=device, timeout=DRYRUN_TIMEOUT_S)
         try:
             results = _matrix(n, device)
@@ -225,12 +227,6 @@ def _dryrun_rank(rank: int, n: int, port: int, device: str, out) -> None:
     except BaseException:  # reported to the parent, which raises
         out.put(("error", rank, traceback.format_exc()))
         raise
-
-
-def _free_port() -> int:
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
 
 
 def dryrun_multichip(n_devices: int, device=None) -> Dict[str, float]:
@@ -250,9 +246,10 @@ def dryrun_multichip(n_devices: int, device=None) -> Dict[str, float]:
                            f"{torch.cuda.device_count()}")
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
-    port = _free_port()
+    # held until the ranks are joined below
+    store = bootstrap.local_store()
     procs = [ctx.Process(target=_dryrun_rank,
-                         args=(r, n_devices, port, dev, out))
+                         args=(r, n_devices, store.port, dev, out))
              for r in range(n_devices)]
     for p in procs:
         p.start()

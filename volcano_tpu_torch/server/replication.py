@@ -681,8 +681,12 @@ class Replication:
             tail_dead = (self._tail_thread is not None
                          and not self._tail_thread.is_alive()
                          and not self._stop.is_set())
-            if self._caught_up and not tail_dead:
-                return 0.0
+            # a caught-up follower is current as of the response that
+            # proved it, not after: the next poll may be stalled on a
+            # dead link, so its lag is the age of that proof, never 0
+            # (the reference's 0 here let a follower whose link was
+            # blackholed right after a reply claim currency for a whole
+            # poll timeout while the leader moved on)
             ref = self._last_leader_ok if tail_dead and \
                 self._caught_up else self._caught_up_at
             return time.monotonic() - ref

@@ -67,6 +67,10 @@ ENV_RESUME_STEP = "VTP_RESUME_STEP"
 # how many processes the pod runs (set by the launcher in worker.main)
 ENV_LOCAL_RANK = "LOCAL_RANK"
 ENV_LOCAL_WORLD_SIZE = "LOCAL_WORLD_SIZE"
+# "True" in a rank's env: it joins the coordinator's store as a client
+# (torch's rendezvous), the store being held by the process that started
+# the ranks (`local_store`)
+ENV_AGENT_STORE = "TORCHELASTIC_USE_AGENT_STORE"
 DEFAULT_COORDINATOR_PORT = 8476
 # how long a collective (the rendezvous included) may wait for a peer
 # before it raises, so that a lost rank fails the job instead of hanging it
@@ -193,6 +197,16 @@ def initialize(environ=None, device=None,
         atexit.register(shutdown)
         _shutdown_at_exit = True
     return info
+
+
+def local_store() -> dist.TCPStore:
+    """The store of a group whose ranks this process starts on this
+    host.  It binds port 0 itself, so no other process can take the port
+    between its choice and its use (a port found free and bound later by
+    rank 0 can be).  Keep it until the ranks exit; start them with
+    `ENV_AGENT_STORE=True` and `COORDINATOR_ADDRESS=127.0.0.1:<port>`."""
+    return dist.TCPStore("127.0.0.1", 0, is_master=True,
+                         wait_for_workers=False)
 
 
 def _drop_group_refs(mesh) -> None:

@@ -29,7 +29,6 @@ import time
 from typing import Optional
 
 from volcano_tpu_torch.api.goodput import ENV_EPOCH, ENV_PROGRESS_FILE
-from volcano_tpu_torch.workloads.bootstrap import local_layout
 
 
 class ProgressReporter:
@@ -47,6 +46,9 @@ class ProgressReporter:
 
     @classmethod
     def from_env(cls, environ=None) -> Optional["ProgressReporter"]:
+        # here, not at import: the node agents and the chaos tools write
+        # progress records on hosts without torch
+        from volcano_tpu_torch.workloads.bootstrap import local_layout
         env = os.environ if environ is None else environ
         path = env.get(ENV_PROGRESS_FILE, "")
         if not path or local_layout(env)[0] != 0:

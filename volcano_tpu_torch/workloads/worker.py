@@ -40,7 +40,6 @@ from __future__ import annotations
 import json
 import os
 import signal
-import socket
 import subprocess
 import sys
 import time
@@ -159,12 +158,6 @@ def local_device_count(environ=None) -> int:
     return int(env.get(ENV_LOCAL_DEVICES, 1))
 
 
-def _free_port() -> int:
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
-
-
 def _end(procs) -> None:
     """Terminate the children still running; kill those that outlast
     TERMINATE_GRACE_S."""
@@ -193,9 +186,13 @@ def launch(n_local: int, environ=None) -> int:
     from the plugin's env, so no rendezvous of the agent's is needed."""
     env = dict(os.environ if environ is None else environ)
     info = bootstrap.from_env(env)
+    store = None
     if info.num_processes == 1 and not info.coordinator_address:
-        # a one-pod job meets on this host
-        env[bootstrap.ENV_COORDINATOR] = f"127.0.0.1:{_free_port()}"
+        # a one-pod job meets on this host, at a store this process
+        # holds until its children are done
+        store = bootstrap.local_store()
+        env[bootstrap.ENV_COORDINATOR] = f"127.0.0.1:{store.port}"
+        env[bootstrap.ENV_AGENT_STORE] = "True"
     env[bootstrap.ENV_LOCAL_WORLD_SIZE] = str(n_local)
     procs = []
 

@@ -67,8 +67,9 @@ over the wire and run on cuda,
 the server's GPU guard refusing an overcommitting bind and a stale pod
 write, and a kill -9 of the server with its recovery (every acked bind
 kept, the clients resynced, the job still Running), each with its host
-times and the WAL's fsyncs; (16) `phase_ha`: half phase_schedule's
-fleet and backlog (512 hosts, 64 vcjobs) over three TLS state-server
+times and the WAL's fsyncs; (16) `phase_ha`: a quarter of
+phase_schedule's fleet and backlog (256 hosts, 32 vcjobs) over three
+TLS state-server
 replicas (`--replica-id r1..r3`,
 quorum commit and election of 2, the bearer token; one self-signed
 certificate for the group), the controllers, two leader-elected
@@ -137,7 +138,17 @@ a 3-replica group with a leader kill, over the serving class, a region
 killed under the federation tier and the router replica set killed and
 stopped; the soak with a host and the server killed; the race bench's
 parallel sweep at 1024 hosts certified bit-identical -- every invariant
-held, no process dead, no kernel launched in this process.
+held, no process dead, no kernel launched in this process; (23)
+`phase_bench`, run just before `phase_chaos`: the port's bench harness
+(`python -m
+volcano_tpu_torch.bench`): its device children as subprocesses on the
+card (the probe; the flash child timing the port's three kernels at
+[4, 2048, 8, 128] on CUDA events beside SDPA and the plain version,
+with its own profiler reading held to that time within 10% and no SDPA
+kernel on a kernel path; the train child at d2048-L8-b8, its step held
+to phase_train's within 3%), the agent fast path's pods/s, one shuffle
+cycle over the settled schedule plane, and the bench's 14 smokes in
+three lanes, each exiting 0.
 
 The kernel phases (3)-(5) also hold and time the kernels at the shapes
 beyond d in {128, 256} and t % 128 == 0 (d = 384 and 512 on the
@@ -172,9 +183,6 @@ import time
 
 import torch
 
-# Published peaks (NVIDIA data sheets, dense): (bf16 FLOP/s, bytes/s)
-PEAKS = {"H100 PCIe": (756e12, 2.0e12), "H100 NVL": (835e12, 3.9e12),
-         "H100": (989e12, 3.35e12)}
 SLICE_SHAPE = (8, 2048, 16, 128)          # b, t, h, d of the serving slice
 SLICE_REQUESTS = 40
 RANK_SHAPES = ((4, 2048, 8, 128), (2, 2048, 16, 128))
@@ -233,13 +241,6 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def peaks(name: str):
-    for key, val in PEAKS.items():
-        if key in name:
-            return key, val
-    return "H100", PEAKS["H100"]
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -2010,7 +2011,7 @@ WIRE_TIMEOUT_S = 240    # each wait for the plane to converge
 WIRE_GRACE_S = 5.0      # SIGTERM grace before SIGKILL at teardown
 # the wire phase's depth: a quarter of phase_schedule's fleet and
 # backlog, in the same fabrics and mix, which keeps the script near its
-# time budget (phase_ha runs the half-depth fleet over the wire)
+# time budget (phase_ha runs the same depth over its replicas)
 WIRE_HOSTS = SCHED_HOSTS // 4
 WIRE_JOBS = SCHED_JOBS // 4
 
@@ -2534,8 +2535,10 @@ def phase_wire(bootstrap, smi):
 
 HA_REPLICAS = ("r1", "r2", "r3")
 HA_QUORUM = 2           # commit and election quorum: a majority of three
-HA_HOSTS = SCHED_HOSTS // 2     # half phase_schedule's fleet and backlog
-HA_JOBS = SCHED_JOBS // 2
+# a quarter of phase_schedule's fleet and backlog, as phase_wire's: the
+# script's time limit holds phase_bench too
+HA_HOSTS = SCHED_HOSTS // 4
+HA_JOBS = SCHED_JOBS // 4
 HA_FREE_GPUS = 512      # GPUs the finished backlog jobs free for the kill
 HA_KILL_GANGS = 8       # 4-host gangs submitted before the kill, and after
 HA_POLL_S = 0.05        # the election and takeover clocks' polling period
@@ -4849,6 +4852,29 @@ CHAOS_LANES = ("ACDG", "BEF")
 FAULT_LINE = re.compile(r"fault injected: site=(\w+) kind=(\w+)")
 
 
+def run_session(argv, d, timeout):
+    """argv from the repo root in a session of its own, its TMPDIR, stdout
+    and stderr logs under `d`; every process it left is killed after it.
+    (its exit code, None past `timeout`; its wall s)."""
+    t0 = time.monotonic()
+    with open(os.path.join(d, "stdout.log"), "w") as out, \
+            open(os.path.join(d, "stderr.log"), "w") as err:
+        proc = subprocess.Popen(argv, cwd=REPO, env=dict(port_env(), TMPDIR=d),
+                                stdout=out, stderr=err,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            rc = None
+        finally:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass            # the run and every process it started ended
+            proc.wait()
+    return rc, time.monotonic() - t0
+
+
 def chaos_run(tag, workdir):
     """One run of CHAOS_RUNS in a session of its own, its TMPDIR and the
     conductor's --logdir under `workdir/tag`; every process it left is
@@ -4862,23 +4888,7 @@ def chaos_run(tag, workdir):
         argv += ["--logdir", os.path.join(d, "logs")]
     elif tool == "race_bench":
         argv += ["--out", os.path.join(d, "race.json")]
-    t0 = time.monotonic()
-    with open(os.path.join(d, "stdout.log"), "w") as out, \
-            open(os.path.join(d, "stderr.log"), "w") as err:
-        proc = subprocess.Popen(argv, cwd=REPO, env=dict(port_env(), TMPDIR=d),
-                                stdout=out, stderr=err,
-                                start_new_session=True)
-        try:
-            rc = proc.wait(timeout=CHAOS_TIMEOUT_S)
-        except subprocess.TimeoutExpired:
-            rc = None
-        finally:
-            try:
-                os.killpg(proc.pid, signal.SIGKILL)
-            except ProcessLookupError:
-                pass            # the run and every process it started ended
-            proc.wait()
-    wall = time.monotonic() - t0
+    rc, wall = run_session(argv, d, CHAOS_TIMEOUT_S)
     path = os.path.join(d, "race.json" if tool == "race_bench"
                         else "stdout.log")
     with open(path) as f:
@@ -4900,7 +4910,15 @@ def chaos_failures(run):
     process that died on its own, a failed audit or certification."""
     tag, doc = run["tag"], run["doc"]
     if run["rc"] != 0 or doc is None:
-        return [f"exit code {run['rc']}, result {doc is not None}"]
+        # what the run said of itself: its result's violations, else the
+        # violations it printed
+        with open(os.path.join(run["dir"], "stdout.log"),
+                  errors="replace") as f:
+            said = [ln.strip() for ln in f if "VIOLATION" in ln][:10]
+        seen = (doc or {}).get("violations") or \
+            ((doc or {}).get("invariants") or {}).get("violations") or said
+        return [f"exit code {run['rc']}, result {doc is not None}: "
+                f"{json.dumps(seen)[:2000]}"]
     bad = []
     if tag in "ABCDE":
         violations = doc["invariants"]["violations"] if tag in "ABC" \
@@ -5074,6 +5092,207 @@ def phase_chaos(smi):
     return dict(runs=out, wall_s=wall)
 
 
+# -- phase_bench: the port's bench harness on the card and its host -------
+
+# the fourteen smokes of `python -m volcano_tpu_torch.bench`, each with
+# its test's timeout (the reference's smoke tests' own), in three lanes
+# of about equal seconds (about 30 s each on an 8-core host)
+BENCH_SMOKES = {"wire": 240, "failover": 180, "elastic": 300, "goodput": 300,
+                "serve": 300, "federation": 300, "timeline": 300,
+                "federation-ha": 300, "crash": 180, "chaos": 180,
+                "shard": 240, "replication": 180, "trace": 180, "sweep": 180}
+BENCH_LANES = (("federation", "goodput", "wire", "sweep", "failover"),
+               ("timeline", "chaos", "serve", "crash"),
+               ("replication", "federation-ha", "shard", "elastic", "trace"))
+BENCH_TRAIN_AGREE = 0.03   # the train child's d2048-L8-b8 step vs phase_train
+BENCH_FLASH_AGREE = 0.10   # the flash child's forward vs the profiler's
+BENCH_CHILD_TIMEOUT_S = {"--probe-child": 150, "--flash-child": 240,
+                         "--train-child": 780}
+SHUFFLE_ARGS = {"rescheduling.interval": 0,
+                "rescheduling.strategies": "gpuFragmentation"}
+
+
+def bench_children(tr, smi):
+    """(a) The bench's device children as subprocesses on the card: the
+    probe, the flash child at [4, 2048, 8, 128] and the train child at
+    d2048-L8-b8, its step against phase_train's median."""
+    from volcano_tpu_torch import bench
+    out = {}
+    # the train child at the flagship's batch alone: the whole sweep
+    # (`python -m volcano_tpu_torch.bench --train-child`) does not fit the
+    # script's time limit beside the other phases
+    os.environ["BENCH_TRAIN_BATCH"] = str(TRAIN_BATCH)
+    for flag, timeout in BENCH_CHILD_TIMEOUT_S.items():
+        t0 = time.monotonic()
+        res = bench._gpu_subprocess(flag, timeout)
+        wall = time.monotonic() - t0
+        log(f"[bench] {flag} {wall:.1f} s ({smi}): {json.dumps(res)}")
+        if not res.get("gpu_available") or "timed_out_after_s" in res:
+            raise AssertionError(f"{flag} failed: {res.get('error', res)}")
+        out[flag.strip("-").replace("-child", "")] = dict(res, wall_s=wall)
+    os.environ.pop("BENCH_TRAIN_BATCH")
+    # the kernel paths' windows time the card, not the host's launches
+    bound = [n for n in out["flash"]["host_bound"] if n.startswith("kernel")]
+    if bound:
+        raise AssertionError(f"the flash child's {bound} windows were "
+                             "host-bound")
+    sweep = {p["config"]: p for p in out["train"]["sweep"]}
+    for tag, point in sweep.items():
+        if "error" in point:
+            # a point that does not fit keeps its error line, as the
+            # reference's sweep does; the flagship's point must run
+            log(f"[bench] train sweep point {tag}: {point['error']}")
+    head = sweep.get("d2048-L8-b8", {})
+    if "step_ms" not in head:
+        raise AssertionError(f"the train child's d2048-L8-b8 point: {head}")
+    gap = abs(head["step_ms"] - tr["step_ms"]) / tr["step_ms"]
+    log(f"[bench] train child d2048-L8-b8 {head['step_ms']:.3f} ms (CUDA "
+        f"events, median of steps 2-6) vs phase_train {tr['step_ms']:.3f} "
+        f"ms: gap {gap:.4f} (bound {BENCH_TRAIN_AGREE})")
+    if gap > BENCH_TRAIN_AGREE:
+        raise AssertionError(f"the train child's step is {gap:.2%} off "
+                             "phase_train's")
+    # each kernel once a layer (the flagship's 8) a step
+    want = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                         8 * bench.TRAIN_STEPS)
+    if head["launches"] != want:
+        raise AssertionError(f"train child launches {head['launches']}, "
+                             f"want {want}")
+    out["train_gap"] = gap
+    return out
+
+
+def flash_checks(flash, smi):
+    """The flash child's own torch.profiler reading of its kernel paths:
+    the port's three kernels on every forward + backward path and the
+    forward kernel alone on the forward path, no other attention kernel
+    (SDPA's) on any of them, and the forward kernel's device ms against
+    the child's CUDA-event ms; its launch counters by path."""
+    prof, launches = flash["profile"], flash["launches"]
+    for name, seen in prof.items():
+        want = {"flash_fwd"} if name == "kernel_fwd" else \
+            {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"}
+        counts = launches[name]
+        if set(seen["kernel_events"]) != want or \
+                seen["other_attention_kernels"] or \
+                {k for k, n in counts.items() if n} != want:
+            raise AssertionError(f"{name}: the profiler saw {seen}, the "
+                                 f"launch counters {counts}; want {want}")
+    for name, counts in launches.items():
+        if not name.startswith("kernel") and any(counts.values()):
+            raise AssertionError(f"the yardstick {name} launched the port's "
+                                 f"kernels: {counts}")
+    dev_ms = prof["kernel_fwd"]["fwd_kernel_ms"]
+    gap = abs(flash["kernel_fwd_ms"] - dev_ms) / dev_ms
+    log(f"[bench] flash child forward {flash['kernel_fwd_ms']:.4f} ms (CUDA "
+        f"events) vs the profiler's forward kernel {dev_ms:.4f} ms an event "
+        f"({smi}): gap {gap:.4f} (bound {BENCH_FLASH_AGREE}); the "
+        f"profiler's kernel events "
+        f"{json.dumps({n: s['kernel_events'] for n, s in prof.items()})}, "
+        "no SDPA kernel on a kernel path")
+    if gap > BENCH_FLASH_AGREE:
+        raise AssertionError(f"the flash child's forward is {gap:.2%} off "
+                             "the profiler's")
+    return dict(profiler_fwd_ms=dev_ms, gap=gap)
+
+
+def bench_shuffle(plane, smi):
+    """One cycle of the settled schedule plane with shuffle among the
+    conf's actions, its victims named by the rescheduling plugin's GPU
+    defragmentation strategy."""
+    from volcano_tpu_torch.conf import PluginOption
+    cluster, _, sched, _ = plane
+    before = list(sched.conf.actions)
+    sched.conf.actions = ["enqueue", "allocate", "shuffle", "backfill"]
+    sched.conf.tiers[-1].plugins.append(
+        PluginOption(name="rescheduling", arguments=dict(SHUFFLE_ARGS)))
+    n_ev = len(cluster.evictions)
+    t0 = time.perf_counter()
+    sched.run_once()
+    cycle_ms = (time.perf_counter() - t0) * 1e3
+    actions = cycle_spans(set(), set())["actions_ms"]
+    evicted = cluster.evictions[n_ev:]
+    sched.conf.tiers[-1].plugins.pop()
+    sched.conf.actions = before
+    log(f"[bench] shuffle cycle over the settled plane {cycle_ms:.3f} ms "
+        f"({smi}; host times; actions {actions}): {len(evicted)} "
+        f"eviction(s) {evicted}")
+    if "shuffle" not in actions:
+        raise AssertionError(f"the shuffle action did not run: {actions}")
+    return dict(cycle_ms=cycle_ms, actions_ms=actions, evictions=evicted)
+
+
+def bench_smoke(mode, workdir):
+    """`python -m volcano_tpu_torch.bench --<mode>-smoke` in a session of
+    its own, its TMPDIR under `workdir`; killed after it.  Its wall s,
+    exit code and JSON line."""
+    d = os.path.join(workdir, mode)
+    os.makedirs(d)
+    rc, wall = run_session([sys.executable, "-m", "volcano_tpu_torch.bench",
+                            f"--{mode}-smoke"], d, BENCH_SMOKES[mode])
+    with open(os.path.join(d, "stdout.log")) as f:
+        lines = [ln for ln in f if ln.startswith("{")]
+    return dict(rc=rc, wall_s=wall,
+                doc=json.loads(lines[-1]) if lines else None)
+
+
+def bench_smokes(smi):
+    """(c) The fourteen smokes in three lanes side by side; each must
+    exit 0 with ok true."""
+    workdir = tempfile.mkdtemp(prefix="vtp-bench-")
+    runs, errors = {}, []
+
+    def lane(modes):
+        for mode in modes:
+            try:
+                runs[mode] = bench_smoke(mode, workdir)
+            except Exception as e:  # noqa: BLE001 -- raised below
+                errors.append(f"{mode}: {e!r}")
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=lane, args=(modes,))
+               for modes in BENCH_LANES]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.monotonic() - t0
+    failures = list(errors) + [
+        f"{m}: rc {r['rc']}, ok {(r['doc'] or {}).get('ok')}"
+        for m, r in sorted(runs.items())
+        if r["rc"] != 0 or not (r["doc"] or {}).get("ok")]
+    if failures or len(runs) != len(BENCH_SMOKES):
+        raise AssertionError("bench smokes failed (logs kept in " + workdir
+                             + "):\n" + "\n".join(failures))
+    secs = {m: round(r["wall_s"], 1) for m, r in sorted(runs.items())}
+    log(f"[bench] {len(runs)} smokes in {len(BENCH_LANES)} lanes, "
+        f"{wall:.1f} s ({smi}; "
+        f"host times), each exit 0 and ok: {json.dumps(secs)}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    return dict(wall_s=wall, smoke_s=secs)
+
+
+def phase_bench(tr, plane, smi):
+    """The port's bench harness (`python -m volcano_tpu_torch.bench`):
+    (a) its device children on the card, the train child's flagship step
+    held to phase_train's and the flash child's forward to the
+    profiler's, with the port's three kernels and no SDPA kernel on the
+    timed paths; (b) the agent fast path (`bench_agent_scheduler_
+    throughput`) in this process; a shuffle cycle over the settled
+    schedule plane; (c) the fourteen smokes in three lanes."""
+    from volcano_tpu_torch import bench
+    out = bench_children(tr, smi)
+    out["flash_checks"] = flash_checks(out["flash"], smi)
+    t0 = time.monotonic()
+    pps = bench.bench_agent_scheduler_throughput()
+    log(f"[bench] agent fast path {pps:.1f} pods/s (median of 3 bursts of "
+        f"500 pods; {time.monotonic() - t0:.1f} s; {smi}; host times)")
+    out["agent_pods_per_s"] = pps
+    out["shuffle"] = bench_shuffle(plane, smi)
+    out["smokes"] = bench_smokes(smi)
+    return out
+
+
 def main() -> int:
     # the port first: alone, without the repo, the script fails here
     # before it prints anything
@@ -5082,6 +5301,8 @@ def main() -> int:
                                              worker)
     from volcano_tpu_torch.workloads import mesh as mesh_lib
     from volcano_tpu_torch.workloads.ops import _build
+    # the card's peaks: one table, the bench's
+    from volcano_tpu_torch.bench import peaks
     fa = importlib.import_module(
         "volcano_tpu_torch.workloads.ops.flash_attention")
     name, smi = phase_device()
@@ -5133,7 +5354,6 @@ def main() -> int:
     # trains the tiny f32 config, flash off, in its own process)
     zero_counts(fa)
     sc["preempt"] = timed("phase_preempt", phase_preempt, plane, smi)
-    del plane
     sc["failover"] = timed("phase_failover", phase_failover, bootstrap, smi)
     sc["preempt_failover_kernel_launches"] = launch_counts(fa)
     # nor do the operator's CLI and the federation tier (their workers
@@ -5143,6 +5363,14 @@ def main() -> int:
     sc["federation"] = timed("phase_federation", phase_federation, bootstrap,
                              smi)
     sc["cli_federation_kernel_launches"] = launch_counts(fa)
+    # the bench's children count their own launches (in their JSON); this
+    # process launches none
+    zero_counts(fa)
+    sc["bench"] = timed("phase_bench", phase_bench, tr, plane, smi)
+    del plane
+    sc["bench_kernel_launches"] = launch_counts(fa)
+    if any(sc["bench_kernel_launches"].values()):
+        raise AssertionError("phase_bench launched a kernel in this process")
     # nor do the chaos conductor and the other control-plane tools (each
     # run a process of its own on this host, no GPU)
     zero_counts(fa)

@@ -385,3 +385,21 @@ def test_stale_status_flush_keeps_the_serving_ledger():
     reference rewinds it to the stale copy's; the port keeps it."""
     assert _ledger_after_a_stale_flush("volcano_tpu") == (120.0, 0.0)
     assert _ledger_after_a_stale_flush("volcano_tpu_torch") == (120.0, 120.0)
+
+
+def test_bench_chaos_smoke_mode():
+    """`python -m volcano_tpu_torch.bench --chaos-smoke` drives the three
+    headline gray failures through real OS processes: one ack-lost
+    bind, one ENOSPC degrade-and-recover, one CRC-corrupt replay
+    refusal."""
+    from torch_procs import bench_ok, run_bench
+    out = bench_ok(*run_bench("--chaos-smoke", 180))
+    assert out["ok"] is True, out
+    assert out["ack_lost_bind"]["fault_injected"] == 1
+    assert out["ack_lost_bind"]["bound_once"]
+    assert out["enospc_degrade"]["writes_503"]
+    assert out["enospc_degrade"]["leases_served"]
+    assert out["enospc_degrade"]["healed_writable"]
+    assert out["enospc_degrade"]["rv_monotonic"]
+    assert out["crc_corrupt_replay"]["refused"]
+    assert out["crc_corrupt_replay"]["prefix_intact"]

@@ -547,3 +547,27 @@ def wait_for(cond, timeout, msg):
             return
         time.sleep(0.05)
     raise AssertionError(f"timed out waiting for {msg}")
+
+
+def test_bench_failover_smoke_mode():
+    """`python -m volcano_tpu_torch.bench --failover-smoke` kills one
+    fake host and asserts the gang re-reaches Running with a bumped
+    failover generation inside the cycle budget."""
+    from torch_procs import bench_ok, run_bench
+    out = bench_ok(*run_bench("--failover-smoke", 180))
+    assert out["ok"] is True, out
+    assert out["mttr_p50_s"] > 0
+    assert out["breakdown_p50_s"]["detect"] >= 0
+    assert out["cycles_to_recover"] and \
+        all(c <= 40 for c in out["cycles_to_recover"])
+
+
+def test_bench_elastic_smoke_mode():
+    """`python -m volcano_tpu_torch.bench --elastic-smoke` runs one grow
+    and one shrink through the REAL process control plane (state
+    server + scheduler + controllers as OS processes)."""
+    from torch_procs import bench_ok, run_bench
+    out = bench_ok(*run_bench("--elastic-smoke", 300))
+    assert out["ok"] is True, out
+    assert out["grow_ok"] and out["shrink_ok"]
+    assert out["utilization"] > 0

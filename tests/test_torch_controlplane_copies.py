@@ -98,6 +98,8 @@ NEW_OUTSIDE = {
     "tools.fuzz_sweep": "tools/fuzz_sweep.py",
     "tools.fedfleet": "bench.py",
     "tools.churn": "tests/test_fuzz_scheduler.py",
+    "bench": "bench.py",
+    "tools.gpu_watch": "tools/tpu_watch.py",
 }
 
 # a reference tool becomes its port under these renames: the package,
@@ -112,6 +114,14 @@ TOOL_RENAMES = (
      r"os\.path\.abspath\(__file__\)\)\)",
      r"os.path.dirname(os.path.dirname(os.path.dirname(\1"
      r"os.path.abspath(__file__))))"),
+)
+
+# bench.py sits at the repo root, its port one directory further down:
+# its usage lines and its repo-root path, after TOOL_RENAMES
+BENCH_RENAMES = (
+    (r"python bench\.py", "python -m volcano_tpu_torch.bench"),
+    (r"os\.path\.dirname\(os\.path\.abspath\(__file__\)\)",
+     "os.path.dirname(os.path.dirname(os.path.abspath(__file__)))"),
 )
 
 # NEW_OUTSIDE module -> why it differs from its counterpart after the
@@ -151,9 +161,46 @@ OUTSIDE_CHANGES = {
     "tools.fuzz_sweep": "the episode from tools.churn, not tests/",
     "tools.fedfleet": "bench.py's federation fleet and its helpers "
                       "alone, with the GPU layer; the fleet names the "
-                      "processes that died on their own (`died`)",
+                      "processes that died on their own (`died`); "
+                      "`fed_stamp_and_fold` waits for the region's "
+                      "mirror to show the copy the global record says "
+                      "runs there (fault: the conductor's router run "
+                      "failed when that mirror trailed)",
     "tools.churn": "the reference test's churn_episode and its "
                    "invariants alone, on the mirrored GPU cluster",
+    "bench": "the scenarios' TPU slices are NVLink domains of HGX H100 "
+             "hosts (8 GPUs a host, so every chip count doubles; "
+             "`domain_for`, `make_domain_cluster`), pods ask "
+             "nvidia.com/gpu with the torch plugin, the clique label in "
+             "place of the slice label, h100 and h200 as the goodput "
+             "rows' two generations, no JAX env for the plane's "
+             "processes; the federation fleet and its helpers from "
+             "tools.fedfleet; the device children rewritten for the card "
+             "on CUDA events (the flash child times the port's three "
+             "kernels with the plain version and SDPA beside them, the "
+             "train child the six-point sweep, the elastic child runs on "
+             "8 then 4 gloo ranks with DCP); the card's PEAKS in place "
+             "of TPU_PEAK_FLOPS; renamed keys: the metric "
+             "p50_gang_allocate_latency_256host_v5p1024 -> "
+             "..._256host_h100_256x8, chip_utilization_under_contention "
+             "-> gpu_utilization_under_contention, tpu_probe, "
+             "flash_attention_tpu, train_step_tpu -> gpu_probe, "
+             "flash_attention_gpu, train_step_gpu, tpu_available -> "
+             "gpu_available, pallas_* -> kernel_*, jnp_* -> plain_*, "
+             "ici_adjacent_ok and victim_ici_adjacent_all -> "
+             "nvlink_adjacent_ok and victim_nvlink_adjacent_all, "
+             "decision_to_chips_free_s -> decision_to_gpus_free_s; the "
+             "last_known_good substitution dropped (a failed probe "
+             "leaves its error in the device rows and main exits 1); "
+             "two lint findings of the port's linter repaired; no "
+             "change-tracking or artifact numbers in docstrings and "
+             "comments",
+    "tools.gpu_watch": "probes the card and runs the port bench's "
+                       "children as modules; names the card and its "
+                       "power limit as nvidia-smi gives them; writes "
+                       "build/GPU_RESULTS.json or --out, never the repo "
+                       "root; the bench never reads it in place of a "
+                       "live run; no round numbers in the docstring",
 }
 
 # module -> why it differs from the reference beyond the rename
@@ -188,7 +235,11 @@ GPU_LAYER = {
     "cache.fake_cluster": "a podgroup status flush keeps the serving "
                           "fold's monotone ledgers, as a put does "
                           "(fault: a stale flush rewound the serving "
-                          "request ledger)",
+                          "request ledger); a keyed vcjob put (the "
+                          "wire's update) of a deleted job raises "
+                          "KeyError, 404 over the wire (fault: a stale "
+                          "status flush re-created a migrated job in "
+                          "its source region, ROADMAP C.15)",
     "actions.elastic": "slices are NVLink domains in IB fabrics, counted "
                        "in nvidia.com/gpu",
     "actions.topology_alloc": "docstring: NVLink/IB tiers",
@@ -202,7 +253,11 @@ GPU_LAYER = {
                              "nvlink/ib fabric records",
     "controllers.sharding": "batch keeps the NVLink-domain hosts",
     "controllers.job.controller": "GPU requests default a subgroup to "
-                                  "NVLink-local hard topology",
+                                  "NVLink-local hard topology; a sync "
+                                  "stops for a job deleted since its "
+                                  "snapshot and makes it no podgroup "
+                                  "(ROADMAP C.15: the new podgroup "
+                                  "lacked the evacuation hold)",
     "controllers.job.plugins.__init__": "loads the torch plugin in place "
                                         "of jax",
     "webhooks.admission": "elastic divisibility over nvidia.com/gpu "
@@ -332,10 +387,16 @@ def test_gpu_layer_module_differs(module):
         f"{module} equals the reference: drop it from GPU_LAYER/WORDING"
 
 
-def _tool_renamed(text):
-    for pattern, repl in TOOL_RENAMES:
+def _tool_renamed(text, extra=()):
+    for pattern, repl in TOOL_RENAMES + tuple(extra):
         text = re.sub(pattern, repl, text)
     return text
+
+
+def _counterpart(module):
+    """The module's counterpart after its renames."""
+    return _tool_renamed((REPO / NEW_OUTSIDE[module]).read_text(),
+                         BENCH_RENAMES if module == "bench" else ())
 
 
 def test_outside_changes_name_outside_modules():
@@ -345,7 +406,7 @@ def test_outside_changes_name_outside_modules():
 
 @pytest.mark.parametrize("module", sorted(OUTSIDE_CHANGES))
 def test_new_module_differs_from_its_counterpart(module):
-    want = _tool_renamed((REPO / NEW_OUTSIDE[module]).read_text())
+    want = _counterpart(module)
     assert _path(PORT, module).read_text() != want, \
         f"{module} equals its counterpart: drop it from OUTSIDE_CHANGES"
 
@@ -353,7 +414,7 @@ def test_new_module_differs_from_its_counterpart(module):
 @pytest.mark.parametrize("module", sorted(set(NEW_OUTSIDE)
                                           - set(OUTSIDE_CHANGES)))
 def test_tool_equals_reference_after_rename(module):
-    want = _tool_renamed((REPO / NEW_OUTSIDE[module]).read_text())
+    want = _counterpart(module)
     assert _path(PORT, module).read_text() == want, \
         f"{module} drifted from its reference tool (or belongs in " \
         "OUTSIDE_CHANGES)"
@@ -370,6 +431,41 @@ def test_tool_rename_maps_paths_and_imports():
         "volcano_tpu_torch/tools/soak.py and volcano_tpu_torch/x\n"
         "REPO = os.path.dirname(os.path.dirname(os.path.dirname(\n"
         "    os.path.abspath(__file__))))\n")
+
+
+def test_bench_rename_maps_usage_and_repo_root():
+    text = ("    `python bench.py --scale-40k` regenerates it\n"
+            "    repo = os.path.dirname(os.path.abspath(__file__))\n"
+            "    from volcano_tpu.simulator import domain_nodes\n")
+    assert _tool_renamed(text, BENCH_RENAMES) == (
+        "    `python -m volcano_tpu_torch.bench --scale-40k` regenerates "
+        "it\n"
+        "    repo = os.path.dirname(os.path.dirname("
+        "os.path.abspath(__file__)))\n"
+        "    from volcano_tpu_torch.simulator import domain_nodes\n")
+
+
+def test_bench_differs_only_beside_the_gpu_layer():
+    """Every scenario of the reference's bench is in the port's under
+    its name, and the port's lines are the reference's after the
+    renames but for a share: the GPU layer and the device children."""
+    import difflib
+    ref = _counterpart("bench").splitlines()
+    port = _path(PORT, "bench").read_text().splitlines()
+    names = {n.name for n in ast.parse("\n".join(ref)).body
+             if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+    port_names = {n.name for n in ast.parse("\n".join(port)).body
+                  if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+    # the fleet is fedfleet's; the device rows' helpers took GPU names
+    gone = {"_FederationFleet", "_fed_job", "_fed_view", "_fed_running",
+            "_fed_stamp_steps", "_fed_stamp_and_fold", "_fed_folded_step",
+            "_fed_copy_regions", "_fed_regions_ready", "_fed_dual_sampler",
+            "bench_train_step_tpu", "bench_flash_attention_tpu",
+            "run_tpu_benchmarks", "_last_known_good", "_tpu_subprocess"}
+    assert names - port_names == gone
+    same = sum(b.size for b in difflib.SequenceMatcher(
+        None, ref, port, autojunk=False).get_matching_blocks())
+    assert same / len(port) > 0.85, same / len(port)
 
 
 def _control_plane_files():

@@ -391,3 +391,15 @@ def test_one_stream_writes_the_same_wal_on_both_servers(tmp_path):
     assert [q for q, _, _ in records["port"]] == \
         list(range(1, len(records["port"]) + 1))
 
+
+
+def test_bench_crash_smoke_mode():
+    """`python -m volcano_tpu_torch.bench --crash-smoke` SIGKILLs a real
+    server mid-burst and asserts the recovery invariants."""
+    from torch_procs import bench_ok, run_bench
+    out = bench_ok(*run_bench("--crash-smoke", 180))
+    assert out["ok"] is True, out
+    assert out["acked_writes_lost"] == 0
+    assert out["mirror_divergence"] == 0
+    assert out["rv_regressions"] == 0
+    assert out["rto_p50_s"] > 0

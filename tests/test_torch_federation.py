@@ -928,3 +928,107 @@ def test_router_module_entry_point_help():
          "--help"], cwd=repo, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "--store" in proc.stdout
+
+
+def test_bench_federation_smoke_mode():
+    """`python -m volcano_tpu_torch.bench --federation-smoke` boots two
+    REAL regional control planes plus a global store, routes two gangs
+    by data locality, then SIGKILLs one whole region: the dead region's
+    gang requeues globally and resumes in the survivor from the folded
+    checkpoint step."""
+    from torch_procs import bench_ok, run_bench
+    out = bench_ok(*run_bench("--federation-smoke", 300))
+    assert out["ok"] is True, out
+    assert out["locality_routed_ok"] and out["region_detected_lost"]
+    assert out["folded_step_survived"]
+    assert out["migrated_from"] == "rb"
+    assert out["attempt"] >= 1
+
+
+def test_bench_federation_ha_smoke_mode():
+    """`python -m volcano_tpu_torch.bench --federation-ha-smoke`: two
+    router processes on one global store, SIGKILL the leaseholder
+    mid-cutover, the standby adopts and the fence refuses the dead
+    router's late write."""
+    from torch_procs import bench_ok, run_bench
+    out = bench_ok(*run_bench("--federation-ha-smoke", 300))
+    assert out["ok"] is True, out
+    assert out["term_after"] > out["term_before"]
+    assert out["cutover_exactly_once"]
+    assert out["folded_step_survived"]
+    assert out["stale_fence_refused"]
+    assert out["fenced_writes_counted"] >= 1
+    assert out["anchor_untouched"]
+
+
+def test_bench_timeline_smoke_mode():
+    """`python -m volcano_tpu_torch.bench --timeline-smoke` reconstructs
+    a REAL follow-the-sun migration from ONE episode ID: the stitched
+    span tree is complete, covers router decision + source drain +
+    destination placement + resume, and reconciles within 5%."""
+    from torch_procs import bench_ok, run_bench
+    out = bench_ok(*run_bench("--timeline-smoke", 300))
+    assert out["ok"] is True, out
+    assert out["episode"].startswith("ep-")
+    assert out["reconcile_pct"] <= 5.0
+    assert all(out["coverage"].values()), out["coverage"]
+    assert len(out["hops"]) >= 2
+    assert out["all_fragments_complete"]
+
+
+def test_stale_flush_after_a_cutover_delete_resurrects_only_in_reference():
+    """The source half of a cutover, on one region's store: the router
+    deletes the drained, held copy while the job controller syncs from
+    a snapshot taken before the delete.  The reference's flush of that
+    snapshot re-creates the job, and its podgroup comes back without
+    the evacuation hold, so the scheduler may run the gang in the
+    source again beside its destination copy; the port's store refuses
+    an update of a deleted job (404) and its controller makes no
+    podgroup for it."""
+    def sc(s):
+        httpd, st = s.serve(port=0)
+        rc = s.RemoteCluster(f"http://127.0.0.1:{httpd.server_address[1]}",
+                             start_watch=False)
+        try:
+            rc.add_vcjob(global_job(s, "roamer"))
+            ctrl = s.JobController()
+            ctrl.initialize(rc)
+            ctrl.sync()
+            key = "default/roamer"
+            pg = rc.podgroups[key]
+            pg.annotations[s.eapi.ELASTIC_EVACUATED_ANNOTATION] = "true"
+            rc.update_podgroup_status(pg)
+            snap = rc.list_all()
+            (job,) = [j for j in snap.vcjobs if j.key == key]
+            pods = [p for p in snap.pods if p.owner == job.uid]
+            # the router's delete, then the watch's cascade
+            rc.delete_vcjob(key)
+            for p in pods:
+                rc.delete_pod(p.key)
+            rc.delete_podgroup(key)
+            try:
+                ctrl.sync_job(job, pods)
+                refused = False
+            except KeyError:
+                refused = True
+            try:
+                rc.update_vcjob(job)
+                flush_refused = False
+            except KeyError:
+                flush_refused = True
+            back = st.cluster.podgroups.get(key)
+            return dict(
+                refused=refused, flush_refused=flush_refused,
+                job_back=key in st.cluster.vcjobs,
+                podgroup_back=back is not None,
+                hold=None if back is None else back.annotations.get(
+                    s.eapi.ELASTIC_EVACUATED_ANNOTATION))
+        finally:
+            rc.close()
+            httpd.shutdown()
+            httpd.server_close()
+    ref, port = (sc(s) for s in SIDES)
+    assert ref == dict(refused=False, flush_refused=False, job_back=True,
+                       podgroup_back=True, hold=None)
+    assert port == dict(refused=False, flush_refused=True, job_back=False,
+                        podgroup_back=False, hold=None)

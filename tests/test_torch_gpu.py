@@ -796,3 +796,50 @@ def test_uncovered_shapes_on_cuda_raise(shape, dtype, block, monkeypatch):
     for got, want in zip((out, *grads), (ref_out, *ref_grads)):
         torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                    rtol=rtol)
+
+
+FIRST_ON_A_THREAD = r"""
+import importlib, json, threading, torch
+fa = importlib.import_module("volcano_tpu_torch.workloads.ops.flash_attention")
+g = torch.Generator(device="cuda").manual_seed(0)
+q, k, v, do = (torch.randn((2, 512, 2, 128), generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(4))
+o, lse = fa.flash_fwd(q, k, v)
+got = {}
+
+def backward():
+    got["grads"] = fa.flash_bwd(q, k, v, o, lse, do)
+
+def forward():
+    got["out"] = fa.flash_fwd(q, k, v)[0]
+
+for fn in (backward, forward):
+    th = threading.Thread(target=fn)
+    th.start()
+    th.join()
+torch.cuda.synchronize()
+ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, True)
+ref = (ref_out, *fa.flash_bwd_plain(q, k, v, ref_out, ref_lse, do, True))
+for a, b in zip((got["out"], *got["grads"]), ref):
+    torch.testing.assert_close(a.float(), b.float(), atol=1e-2, rtol=1e-2)
+err = max((a.float() - b.float()).abs().max().item()
+          for a, b in zip((got["out"], *got["grads"]), ref))
+print(json.dumps({"max_abs_err": err}))
+"""
+
+
+@pytest.mark.gpu
+def test_kernels_launch_first_from_a_fresh_thread():
+    """In a fresh process, the backward pair and then the forward are
+    launched from threads that have made no CUDA runtime call (as the
+    autograd engine's device thread is when a flash backward is the
+    first op it runs): each entry point makes the runtime's context
+    current before it encodes its tensor maps, and the results equal
+    the plain versions' (TOL_BF16 absolute and relative)."""
+    _gpus(1)
+    res = subprocess.run([sys.executable, "-c", FIRST_ON_A_THREAD],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=REPO)
+    assert res.returncode == 0, res.stderr[-3000:]
+    err = json.loads(res.stdout.strip().splitlines()[-1])["max_abs_err"]
+    print(json.dumps({"first_launch_on_a_thread_max_abs_err": err}))

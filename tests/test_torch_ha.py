@@ -454,10 +454,14 @@ def agent_daemon(s, tmp_path):
 
     def stage(verdict, cordoned):
         def now():
+            # the daemon posts its report before it writes the node, so
+            # a stage is read once the node carries the report's sample
             rep = state.cluster.slicehealthreports.get(node.name)
             n = state.cluster.nodes[node.name]
             return rep is not None and rep.verdict == verdict and \
-                n.unschedulable == cordoned
+                n.unschedulable == cordoned and \
+                n.annotations.get(chips_ann) == \
+                f"{rep.chips_healthy}/{rep.chips_detected}"
         wait_for(now, 30, f"{s.pkg}'s agent verdict {verdict}")
         n = state.cluster.nodes[node.name]
         rep = state.cluster.slicehealthreports[node.name]
@@ -747,3 +751,17 @@ def test_failover_off_the_failed_domain_matches_reference(monkeypatch):
     assert port["phase"] == "Running" and port["resume_step"] == "4"
     assert port["observed"] == dict(detect=1, drain=1, reschedule=1,
                                     resume=1, mttr=1)
+
+
+def test_bench_shard_smoke_mode():
+    """`python -m volcano_tpu_torch.bench --shard-smoke` boots 2
+    scheduler shards + 2 leader groups as real OS processes, runs one
+    cross-shard gang, and asserts placements identical to the
+    single-shard plane."""
+    from torch_procs import bench_ok, run_bench
+    out = bench_ok(*run_bench("--shard-smoke", 240))
+    assert out["ok"] is True, out
+    assert out["placements_identical"] is True
+    assert out["sharded"]["sched_shards_traced"] == ["0/2", "1/2"]
+    assert all(d > 0 for d in out["sharded"]["leader_group_rv_delta"])
+    assert out["sharded"]["jobs"] == out["single"]["jobs"]

@@ -59,6 +59,15 @@ def test_no_jax_or_reference_import(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
+def test_bench_and_gpu_watch_are_scanned():
+    """The port's bench harness and its capture daemon are among the
+    files scanned above (the reference's bench.py and tools/ are not)."""
+    names = {str(p.relative_to(REPO)) for p in FILES}
+    assert {"volcano_tpu_torch/bench.py",
+            "volcano_tpu_torch/tools/gpu_watch.py"} <= names
+    assert "bench.py" not in names and "tools/tpu_watch.py" not in names
+
+
 def test_importing_the_port_loads_no_jax():
     code = ("import sys\n"
             "import volcano_tpu_torch.workloads.serve\n"
@@ -134,6 +143,8 @@ def test_control_plane_loads_neither_torch_nor_jax():
             "import volcano_tpu_torch.tools.churn\n"
             "import volcano_tpu_torch.tools.trace_report\n"
             "import volcano_tpu_torch.tools.race_bench\n"
+            "import volcano_tpu_torch.tools.gpu_watch\n"
+            "import volcano_tpu_torch.bench\n"
             "import volcano_tpu_torch.workloads.progress\n"
             "from volcano_tpu_torch.analysis import registry\n"
             "assert not registry.check_all()\n"

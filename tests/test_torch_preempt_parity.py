@@ -215,6 +215,39 @@ def gangreclaim_whole_gangs(s):
                           weights=(1, 3), filler_min=4)
 
 
+def shuffle_fragmentation(s):
+    """The shuffle cycle `chip_smoke.py`'s phase_bench runs over the
+    settled schedule plane, at a small size: sub-host packs strand
+    devices on four hosts of two domains; shuffle evicts what the
+    rescheduling plugin's fragmentation strategy names (the packs of
+    the emptiest hosts, which the fuller hosts can absorb)."""
+    cluster = _domains(s, ("sa", "sb"))
+    for name, devices, host in (("pa", 1, "sa-w0"), ("pb", 1, "sa-w1"),
+                                ("pc", 3, "sb-w0"), ("pd", 2, "sb-w1")):
+        pg, pods = s.gang_job(name, replicas=1, min_available=0,
+                              requests={"cpu": 1, s.device: devices},
+                              running_on=[host], pg_phase=s.Phase.RUNNING)
+        cluster.add_podgroup(pg)
+        for p in pods:
+            cluster.add_pod(p)
+    strategy = "tpuFragmentation" if s is REF else "gpuFragmentation"
+    conf = {"actions": "enqueue, allocate, shuffle, backfill", "tiers": [
+        {"plugins": [{"name": "priority"}, {"name": "gang"},
+                     {"name": "conformance"}]},
+        {"plugins": [{"name": "predicates"}, {"name": "proportion"},
+                     {"name": "nodeorder"}, {"name": "binpack"},
+                     {"name": "rescheduling", "arguments": {
+                         "rescheduling.interval": 0,
+                         "rescheduling.strategies": strategy}}]}]}
+    return s.TestContext(cluster=cluster, conf=conf)
+
+
+def check_shuffle(c):
+    assert sorted(c.evictions) == ["default/pa-0", "default/pb-0"]
+    assert [m for _, r, m in c.events if r == "Evict"] == \
+        ["shuffled for rebalancing"] * 2
+
+
 EVENT_WORDS = (("google.com/tpu", "nvidia.com/gpu"),
                ("TPU slice", "NVLink domain"), ("chips", "GPUs"),
                ("TPU", "GPU"))
@@ -296,6 +329,7 @@ SCENARIOS = {
     "gangpreempt_two_cycle": (gangpreempt, 2, None),
     "gangreclaim": (gangreclaim, 2, None),
     "gangreclaim_whole_gangs": (gangreclaim_whole_gangs, 2, None),
+    "shuffle_fragmentation": (shuffle_fragmentation, 2, check_shuffle),
 }
 
 

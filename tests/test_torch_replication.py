@@ -301,3 +301,18 @@ def test_term_mismatch_forces_full_resync(tmp_path):
         for r in (r3, r2):
             if r is not None:
                 r.stop()
+
+
+def test_bench_replication_smoke_mode():
+    """`python -m volcano_tpu_torch.bench --replication-smoke` runs
+    leader + 1 follower + kill-promote through real OS processes: zero
+    acked writes lost across the promotion, continuous follower reads,
+    the deposed leader re-syncs back in."""
+    from torch_procs import bench_ok, run_bench
+    out = bench_ok(*run_bench("--replication-smoke", 180))
+    assert out["ok"] is True, out
+    assert out["acked_lost"] == 0
+    assert out["acked_before_kill"] > 0
+    assert out["acked_after_promote"] > 0
+    assert out["follower_reads_failed"] == 0
+    assert out["rejoin_role"] == "follower"

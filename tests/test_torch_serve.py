@@ -157,3 +157,16 @@ def test_run_returns_reference_keys(reference_seeding):
                             "SERVE_DEVICE": "cpu"})
     assert set(port) == set(torch_run) == set(ref)
     assert torch_run["requests"] >= 0 and 0.0 <= torch_run["attainment"] <= 1
+
+
+def test_bench_serve_smoke_mode():
+    """`python -m volcano_tpu_torch.bench --serve-smoke` drives a traffic
+    step -> replica stats -> REAL agents -> wire -> store fold ->
+    autoscaler scale-up -> topology-aware burst preemption -> serving
+    at 2 replicas, through a REAL process control plane."""
+    from torch_procs import bench_ok, run_bench
+    out = bench_ok(*run_bench("--serve-smoke", 300))
+    assert out["ok"] is True, out
+    assert out["no_premature_decision"] and out["victim_marker_seen"]
+    assert out["replicas_final"] == 2
+    assert out["pool_disjoint_from_victim"]

@@ -486,3 +486,19 @@ def test_gpu_guard_maps_follow_deletions():
     assert "t1" not in verdict["node deleted"][2]
     assert verdict["bind w3"][0] == "KeyError"
     assert verdict["bind w4"][0] == "ValueError"
+
+
+def test_bench_wire_smoke_mode():
+    """`python -m volcano_tpu_torch.bench --wire-smoke` boots the real
+    process control plane at toy scale and reports the keys the full
+    wire scenario does, as the reference's `bench.py --wire-smoke`."""
+    from torch_procs import bench_ok, run_bench
+    out = bench_ok(*run_bench("--wire-smoke", 240))
+    assert out["ok"] is True, out
+    assert out["wire_gang_p50_s"] > 0
+    assert out["scale"]["delta_resync_s"] > 0
+    assert out["scale"]["audit_lost_records"] is False
+    # accounting traffic rides the wire too: one usage report +
+    # violation event round-tripped through the state server
+    assert out["usage_roundtrip"]["usage_report_roundtrip_ok"] is True
+    assert out["usage_roundtrip"]["violation_roundtrip_ok"] is True

@@ -37,3 +37,29 @@ def rendezvous():
         yield store.port
     finally:
         del store
+
+
+def run_bench(mode: str, timeout: float):
+    """`python -m volcano_tpu_torch.bench <mode>` from the repo root, as
+    the reference's smoke tests run `bench.py <mode>`: (the finished
+    process, its last JSON line parsed, or None)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo)
+    env.pop("XLA_FLAGS", None)
+    proc = subprocess.run(
+        [sys.executable, "-m", "volcano_tpu_torch.bench", mode],
+        capture_output=True, text=True, timeout=timeout, env=env, cwd=repo)
+    line = next((ln for ln in reversed(proc.stdout.strip().splitlines())
+                 if ln.startswith("{")), None)
+    return proc, (json.loads(line) if line else None)
+
+
+def bench_ok(proc, out) -> dict:
+    """The smoke's JSON line, once the process exited 0 and printed it."""
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    assert out is not None, proc.stdout[-2000:] + proc.stderr[-2000:]
+    return out

@@ -267,6 +267,14 @@ class FakeCluster(Cluster):
             return self.add_vcjob(obj)
         spec = KINDS[kind]
         k = key_for(kind, obj, key)
+        if kind == "vcjob" and k not in self.vcjobs:
+            # an update never creates: a controller's status flush from
+            # a snapshot taken before the job's delete would resurrect
+            # it, and the job controller then re-creates its podgroup
+            # without the evacuation hold (found by
+            # volcano_tpu_torch/tools/chaos_conductor.py: a migrated
+            # gang ran again in its source region, no_dual_placement)
+            raise KeyError(f"vcjob {k} not found")
         if self.admission is not None:
             if k not in getattr(self, spec.attr):
                 method = self._ADMIT_CREATE.get(kind)

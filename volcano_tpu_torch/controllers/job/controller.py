@@ -78,7 +78,8 @@ class JobController(Controller):
         if job.phase in TERMINAL_PHASES:
             return
 
-        self._ensure_podgroup(job)
+        if not self._ensure_podgroup(job):
+            return
         self._run_job_add_plugins(job)
 
         # fold observed pod state
@@ -182,10 +183,16 @@ class JobController(Controller):
 
     # -- materialization ----------------------------------------------
 
-    def _ensure_podgroup(self, job: VCJob) -> None:
+    def _ensure_podgroup(self, job: VCJob) -> bool:
+        """Create the job's podgroup if it has none; False when the job
+        was deleted since this sync's snapshot (the watch drops a job
+        before its podgroup, so one made here would outlive the job
+        without the holds its old podgroup carried)."""
         key = f"{job.namespace}/{job.name}"
         if key in self.cluster.podgroups:
-            return
+            return True
+        if job.key not in self.cluster.vcjobs:
+            return False
         sub_groups = []
         seen = set()
         for spec in job.tasks:
@@ -212,6 +219,7 @@ class JobController(Controller):
         )
         self.cluster.add_podgroup(pg)
         job.controlled_resources["podgroup"] = pg.key
+        return True
 
     @staticmethod
     def _subgroup_topology(job: VCJob, subgroup: str):

@@ -951,6 +951,7 @@ extern "C" int vtp_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 int B, int T, int H, int D, int ld, int dtype,
                                 int causal, const long long* strides,
                                 void* stream) {
+  if (const cudaError_t err = bind_context(); err != cudaSuccess) return err;
   BwdParams p = make_params(q, k, v, dout, lse, delta, B, T, H, D, ld,
                             causal, strides);
   p.out = out;
@@ -975,6 +976,7 @@ extern "C" int vtp_flash_bwd_dkv(const void* q, const void* k,
                                  void* dk, void* dv, int B, int T, int H,
                                  int D, int ld, int dtype, int causal,
                                  const long long* strides, void* stream) {
+  if (const cudaError_t err = bind_context(); err != cudaSuccess) return err;
   BwdParams p = make_params(q, k, v, dout, lse, delta, B, T, H, D, ld,
                             causal, strides);
   p.dk = dk;

@@ -454,6 +454,7 @@ extern "C" int vtp_flash_fwd(const void* q, const void* k, const void* v,
                              long long k_sb, long long k_st, long long k_sh,
                              long long v_sb, long long v_st, long long v_sh,
                              void* stream) {
+  if (const cudaError_t err = bind_context(); err != cudaSuccess) return err;
   FwdParams p{q,    k,    v,    out,  static_cast<float*>(lse),
               q_sb, q_st, q_sh, k_sb, k_st,
               k_sh, v_sb, v_st, v_sh, B,

@@ -417,6 +417,22 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 }
 
 // ------------------------------------------------------------------- host
+// cuTensorMapEncodeTiled needs a current context, and the runtime makes its
+// context current on a thread only at the thread's first runtime call: a
+// launch from a thread that had made none (the autograd engine's device
+// thread, when a flash backward is the first op it runs) failed to encode
+// its maps. cudaFree(nullptr) is such a call; each entry point makes it
+// once a thread, before anything else.
+inline cudaError_t bind_context() {
+  thread_local bool bound = false;
+  if (!bound) {
+    const cudaError_t err = cudaFree(nullptr);
+    if (err != cudaSuccess) return err;
+    bound = true;
+  }
+  return cudaSuccess;
+}
+
 // cuTensorMapEncodeTiled from the driver through the runtime, so the
 // library links no -lcuda.
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,

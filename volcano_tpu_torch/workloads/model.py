@@ -49,6 +49,7 @@ ordinary fsdp weight.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import warnings
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -66,6 +67,7 @@ from volcano_tpu_torch.workloads.moe import (EXPERT_DIM_PARAMS,
 from volcano_tpu_torch.workloads.ops.flash_attention import flash_attention
 from volcano_tpu_torch.workloads.ring_attention import (
     local_causal_attention, ring_attention, ring_shift)
+from volcano_tpu_torch.workloads.spans import mark_in, mark_out, span
 from volcano_tpu_torch.workloads.ulysses import ulysses_attention
 
 
@@ -437,6 +439,27 @@ def _reduce_from_tp(x, ax: _Axes):
 
 # -- forward ----------------------------------------------------------
 
+def _part(name: str, backward: bool = True):
+    """Runs fn(x, ...) as the model's part `name` (`spans`): inside its
+    profiler range, and with `backward` its `.bwd` range over the
+    autograd nodes the call makes."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(x, *args, **kwargs):
+            with span(name):
+                bwd = mark_in(x, name) if backward else None
+                return mark_out(fn(x, *args, **kwargs), bwd)
+        return run
+    return wrap
+
+
+@_part("vtp::cast")
+def _cast(w, dtype):
+    """An f32 weight in the activation dtype at its use."""
+    return w.to(dtype)
+
+
+@_part("vtp::norm")
 def _rms_norm(x, scale, eps=1e-6):
     # normalize in f32 and cast back LAST, as the reference does, so the
     # f32 scale param never upcasts the residual stream
@@ -444,6 +467,7 @@ def _rms_norm(x, scale, eps=1e-6):
     return ((x * torch.rsqrt(var + eps)) * scale.float()).to(x.dtype)
 
 
+@_part("vtp::rotary")
 def _rotary(x, positions):
     """Rotary position embedding, half-split layout; x: [b, t, h, d]."""
     d = x.shape[-1]
@@ -458,15 +482,25 @@ def _rotary(x, positions):
                      dim=-1).to(x.dtype)
 
 
+@_part("vtp::attn")
 def _attention(x, blk, cfg: ModelConfig, positions, ax: _Axes):
     b, t, _ = x.shape
     x = _copy_to_tp(x, ax)
     shape = (b, t, cfg.n_heads // ax.tp_size, cfg.head_dim)
-    q = (x @ _use(blk["wq"], "wq", ax).to(x.dtype)).reshape(shape)
-    k = (x @ _use(blk["wk"], "wk", ax).to(x.dtype)).reshape(shape)
-    v = (x @ _use(blk["wv"], "wv", ax).to(x.dtype)).reshape(shape)
+    q = (x @ _cast(_use(blk["wq"], "wq", ax), x.dtype)).reshape(shape)
+    k = (x @ _cast(_use(blk["wk"], "wk", ax), x.dtype)).reshape(shape)
+    v = (x @ _cast(_use(blk["wv"], "wv", ax), x.dtype)).reshape(shape)
     q = _rotary(q, positions)
     k = _rotary(k, positions)
+    o = _attention_core(q, k, v, cfg, ax)
+    return _reduce_from_tp(
+        o.reshape(b, t, -1) @ _cast(_use(blk["wo"], "wo", ax), x.dtype), ax)
+
+
+@_part("vtp::attn.core")
+def _attention_core(q, k, v, cfg: ModelConfig, ax: _Axes):
+    """Attention over rotated q, k, v [b, t, h, d] -> o [b, t, h, d]."""
+    t = q.shape[1]
     sp, tp = ax.sp_size, ax.tp_size
     # the reference's branch order (volcano_tpu/workloads/model.py:186)
     if cfg.use_ulysses_attention and sp > 1 and (cfg.n_heads // tp) % sp == 0:
@@ -477,7 +511,7 @@ def _attention(x, blk, cfg: ModelConfig, positions, ax: _Axes):
             warnings.warn(
                 f"use_ulysses_attention needs (n_heads/tp) % sp == 0 "
                 f"(heads={cfg.n_heads}, tp={tp}, sp={sp}); falling "
-                f"back to ring attention", stacklevel=2)
+                f"back to ring attention", stacklevel=3)
         o = ring_attention(q, k, v, ax.sp)
     elif cfg.use_flash_attention and sp == 1:
         o = flash_attention(q, k, v)
@@ -492,31 +526,38 @@ def _attention(x, blk, cfg: ModelConfig, positions, ax: _Axes):
             _Gather.apply(v, 1, ax.sp, True)[:, :end], q_start=ax.sp_rank * t)
     else:
         o = local_causal_attention(q, k, v)
-    return _reduce_from_tp(
-        o.reshape(b, t, -1) @ _use(blk["wo"], "wo", ax).to(x.dtype), ax)
+    return o
 
 
+@_part("vtp::mlp")
 def _mlp(x, blk, ax: _Axes):
     x = _copy_to_tp(x, ax)
     gate = torch.nn.functional.silu(
-        x @ _use(blk["w_gate"], "w_gate", ax).to(x.dtype))
-    up = x @ _use(blk["w_up"], "w_up", ax).to(x.dtype)
+        x @ _cast(_use(blk["w_gate"], "w_gate", ax), x.dtype))
+    up = x @ _cast(_use(blk["w_up"], "w_up", ax), x.dtype)
     return _reduce_from_tp(
-        (gate * up) @ _use(blk["w_down"], "w_down", ax).to(x.dtype), ax)
+        (gate * up) @ _cast(_use(blk["w_down"], "w_down", ax), x.dtype), ax)
 
 
+@_part("vtp::mlp")
+def _moe(x, blk, cfg: ModelConfig, ax: _Axes):
+    """(the routed MLP's output, its aux loss)."""
+    # the router gathered over fsdp like any weight; the expert leaves
+    # stay this rank's (the tokens go to them)
+    return moe_mlp(x, dict(blk, router=_use(blk["router"], "router", ax)),
+                   cfg.n_experts, cfg.expert_top_k, cfg.moe_capacity_factor,
+                   ax)
+
+
+@_part("vtp::block", backward=False)
 def _block(x, blk, cfg: ModelConfig, positions, ax: _Axes):
-    """Returns (x, moe_aux_loss); aux is 0 for dense blocks."""
+    """Returns (x, moe_aux_loss); aux is 0 for dense blocks.  The
+    residual adds are `vtp::block`'s own time."""
     x = x + _attention(_rms_norm(x, blk["attn_norm"]), blk, cfg, positions,
                        ax)
     h = _rms_norm(x, blk["mlp_norm"])
     if "router" in blk:
-        # the router gathered over fsdp like any weight; the expert
-        # leaves stay this rank's (the tokens go to them)
-        y, aux = moe_mlp(h, dict(blk, router=_use(blk["router"], "router",
-                                                  ax)),
-                         cfg.n_experts, cfg.expert_top_k,
-                         cfg.moe_capacity_factor, ax)
+        y, aux = _moe(h, blk, cfg, ax)
         return x + y, aux
     return x + _mlp(h, blk, ax), torch.zeros((), device=x.device)
 
@@ -530,11 +571,17 @@ def forward_with_aux(params, tokens, cfg: ModelConfig, mesh=None):
     b, t = tokens.shape
     # the table gathered whole for the lookup, as the reference
     # replicates it
-    x = _use(params["embed"], "embed", ax, whole=True)[tokens].to(cfg.dtype)
+    x = _embed(_use(params["embed"], "embed", ax, whole=True), tokens,
+               cfg.dtype)
     positions = (ax.sp_rank * t + torch.arange(t, device=tokens.device))[
         None, :].expand(b, t)
     x, aux_total = _apply_blocks(x, params["blocks"], cfg, positions, ax)
     return _logits(x, params, cfg, ax), aux_total
+
+
+@_part("vtp::embed")
+def _embed(table, tokens, dtype):
+    return table[tokens].to(dtype)
 
 
 def _apply_blocks(x, blocks, cfg: ModelConfig, positions, ax: _Axes):
@@ -552,12 +599,13 @@ def _apply_blocks(x, blocks, cfg: ModelConfig, positions, ax: _Axes):
     return x, aux_total
 
 
+@_part("vtp::head")
 def _logits(x, params, cfg: ModelConfig, ax: _Axes):
     """The final norm and the head over x.  Logits stay in the model
     dtype, as in the reference; under tp each rank computes its vocab
     columns, gathered before the loss."""
     x = _copy_to_tp(_rms_norm(x, params["final_norm"]), ax)
-    logits = x @ _use(params["head"], "head", ax).to(cfg.dtype)
+    logits = x @ _cast(_use(params["head"], "head", ax), cfg.dtype)
     if ax.tp is not None:
         logits = _Gather.apply(logits, logits.dim() - 1, ax.tp, False)
     return logits
@@ -568,6 +616,7 @@ def forward(params, tokens, cfg: ModelConfig, mesh=None) -> torch.Tensor:
     return forward_with_aux(params, tokens, cfg, mesh)[0]
 
 
+@_part("vtp::loss")
 def next_token_loss(logits, tokens, sp=None) -> torch.Tensor:
     """Shared next-token CE: logits [b, t, V], tokens [b, t] -> scalar.
     The last position predicts the rolled-around token and is masked,

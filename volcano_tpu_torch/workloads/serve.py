@@ -33,6 +33,8 @@ import time
 from collections import deque
 from typing import Any, Callable, Deque, List, Optional
 
+from volcano_tpu_torch.workloads.spans import span
+
 
 def _rng(key: tuple) -> random.Random:
     """A generator seeded from a tuple key.  The reference passes the
@@ -331,9 +333,10 @@ class BatchedServer:
         """Serve ONE batch off the queue head; returns batch size."""
         if not self.queue:
             return 0
-        batch = [self.queue.popleft()
-                 for _ in range(min(self.max_batch, len(self.queue)))]
-        self.forward_fn(len(batch))
+        with span("vtp::serve.batch"):
+            batch = [self.queue.popleft()
+                     for _ in range(min(self.max_batch, len(self.queue)))]
+            self.forward_fn(len(batch))
         done = self._now()
         for arrival in batch:
             lat_ms = max(0.0, (done - arrival) * 1000.0)

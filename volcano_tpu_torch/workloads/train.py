@@ -47,6 +47,7 @@ from torch.distributed.tensor import DTensor, Shard
 from volcano_tpu_torch.workloads import mesh as mesh_lib
 from volcano_tpu_torch.workloads import model as model_lib
 from volcano_tpu_torch.workloads.model import ModelConfig
+from volcano_tpu_torch.workloads.spans import span
 
 Schedule = Callable[[int], float]
 
@@ -155,26 +156,31 @@ class AdamW:
         local shard when they are DTensors; returns the global norm of
         the unclipped grads (a 0-dim tensor), `g_norm` when given (the
         sharded step's `grad_global_norm`), else `global_norm` of grads."""
-        g_leaves = [local(g) for g in leaves(grads)]
-        if g_norm is None:
-            g_norm = global_norm(g_leaves)
-        # clip as optax does: g when the norm is below the limit, else
-        # g / norm * limit (a tensor op, so the host never waits)
-        clip = torch.where(g_norm < MAX_GRAD_NORM, 1.0,
-                           MAX_GRAD_NORM / g_norm)
-        lr = self.schedule(state["count"])
-        state["count"] += 1
-        bc1 = 1.0 - B1 ** state["count"]
-        bc2 = 1.0 - B2 ** state["count"]
-        for p, g, mu, nu in zip(leaves(params), g_leaves,
-                                leaves(state["mu"]), leaves(state["nu"])):
-            p, mu, nu = local(p), local(mu), local(nu)
-            g = g * clip
-            m = (1 - B1) * g + self._b1_mu * mu
-            nu.copy_((1 - B2) * g.square() + B2 * nu)
-            u = (m / bc1) / ((nu / bc2).sqrt() + EPS)
-            mu.copy_(m)
-            p.sub_(lr * (u + self.weight_decay * p))
+        with span("vtp::adamw"):
+            g_leaves = [local(g) for g in leaves(grads)]
+            with span("vtp::adamw.clip"):
+                if g_norm is None:
+                    g_norm = global_norm(g_leaves)
+                # clip as optax does: g when the norm is below the limit,
+                # else g / norm * limit (a tensor op, so the host never
+                # waits)
+                clip = torch.where(g_norm < MAX_GRAD_NORM, 1.0,
+                                   MAX_GRAD_NORM / g_norm)
+            lr = self.schedule(state["count"])
+            state["count"] += 1
+            bc1 = 1.0 - B1 ** state["count"]
+            bc2 = 1.0 - B2 ** state["count"]
+            with span("vtp::adamw.leaves"):
+                for p, g, mu, nu in zip(leaves(params), g_leaves,
+                                        leaves(state["mu"]),
+                                        leaves(state["nu"])):
+                    p, mu, nu = local(p), local(mu), local(nu)
+                    g = g * clip
+                    m = (1 - B1) * g + self._b1_mu * mu
+                    nu.copy_((1 - B2) * g.square() + B2 * nu)
+                    u = (m / bc1) / ((nu / bc2).sqrt() + EPS)
+                    mu.copy_(m)
+                    p.sub_(lr * (u + self.weight_decay * p))
         return g_norm
 
 
@@ -407,8 +413,10 @@ def value_and_grad(params: Dict[str, Any], batch: Dict[str, Any],
     shards = tree_map(lambda x: local(x).detach().requires_grad_(True),
                       params)
     with torch.enable_grad():
-        loss = model_lib.loss_fn(shards, batch, cfg, mesh)
-        g_list = list(torch.autograd.grad(loss, list(leaves(shards))))
+        with span("vtp::forward"):
+            loss = model_lib.loss_fn(shards, batch, cfg, mesh)
+        with span("vtp::backward"):
+            g_list = list(torch.autograd.grad(loss, list(leaves(shards))))
     loss = loss.detach()
     if mesh is None:
         g_leaves = iter(g_list)

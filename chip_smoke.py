@@ -10,7 +10,10 @@ the kernel, its plain version and, as a yardstick only,
 checks for the backward kernels: dQ and the Delta it writes against
 `flash_bwd_dq_plain` and `bwd_delta`, dK/dV (on that Delta) against
 `flash_bwd_plain`, with the backward of `scaled_dot_product_attention`
-as the yardstick;
+as the yardstick; `phase_adamw`: the fused AdamW kernel at the training
+cell's 75 leaves (2.458 G f32 params), f32 and bf16 mu, against the
+plain loop bit for bit and timed beside its bound, the plain loop and
+`torch._fused_adamw_` (the yardstick);
 (6) full-width parity of the model's flash path against its eager
 attention path in f32, on logits and on every parameter's gradient;
 (7) the serving slice: the flagship d2048-L8 model in bf16 behind
@@ -18,7 +21,8 @@ attention path in f32, on logits and on every parameter's gradient;
 counted, then the replica entry point `serve.run`; (8) the training
 slice: six steps of the flagship d2048-L8 model in bf16 at batch
 8 x 2048 through `train.make_train_step`, with every kernel's launches
-counted, the step time, tokens/s and model FLOP/s, a profile of one
+counted (the AdamW kernel's once a leaf a step, here and in every later
+training phase), the step time, tokens/s and model FLOP/s, a profile of one
 step, and the remat check; (9) the scheduled worker as a vcjob's
 container runs it, `python -m volcano_tpu_torch.workloads.worker` on
 nccl, seeing this one card (`CUDA_VISIBLE_DEVICES`), so its launcher
@@ -233,6 +237,14 @@ RTOL_PP_BF16 = dict(losses=1.5e-4, norms=7e-4)
 PP_MICROBATCHES = 4
 TRAIN_STEPS = 6
 TRAIN_BATCH = 8
+# the fused AdamW kernel at the training cell's leaf set (DeepSeek-LLM-7B's
+# widths at 8 layers, `perfbench/configs/deepseek-llm-7b-8l.json`: 75
+# leaves, 2.458 G f32 params), at a count past the warmup with the clip on
+ADAMW_CFG = dict(vocab_size=102400, d_model=4096, n_layers=8, n_heads=32,
+                 d_ff=11008, max_seq=4096, dtype=torch.float32)
+ADAMW_COUNT = 150
+ADAMW_CLIP = 0.37
+ADAMW_ITERS = 10
 RESUME_STEPS = 5      # the mesh run; checkpointed after step SAVE_STEP
 SAVE_STEP = 3
 WORKER_TIMEOUT_S = 300
@@ -588,6 +600,128 @@ def phase_bwd_timing(fa, flop_peak, byte_peak):
     return res
 
 
+def adamw_state(model, mu_dtype, gen):
+    """The training cell's leaves on the card: params as the model draws
+    them, gradients, a first moment in mu_dtype and a second moment, all
+    of them random and of the gradients' scale."""
+    cfg = model.ModelConfig(**ADAMW_CFG)
+    params = [x for _, x in leaf_items(model.init_params(cfg, gen, "cuda"))]
+    grads = [torch.randn(p.shape, generator=gen, device="cuda") * 1e-3
+             for p in params]
+    mus = [(torch.randn(p.shape, generator=gen, device="cuda") * 1e-3)
+           .to(mu_dtype) for p in params]
+    nus = [torch.rand(p.shape, generator=gen, device="cuda") * 1e-6
+           for p in params]
+    return params, grads, mus, nus
+
+
+def adamw_scalars(ao, count, mu_dtype):
+    """The scalars `train.AdamW.update` hands the leaves at `count`
+    (lr(count - 1) of the reference's default schedule)."""
+    from volcano_tpu_torch.workloads import train
+    opt = train.make_optimizer(mu_dtype=mu_dtype)
+    return ao.AdamWScalars(opt.schedule(count - 1), 1.0 - ao.B1 ** count,
+                           1.0 - ao.B2 ** count, opt.weight_decay,
+                           opt._b1_mu)
+
+
+def ulps(a, b):
+    """The largest distance in units in the last place between two f32
+    (or bf16) tensors of finite values."""
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16).int(), b.view(torch.int16).int()
+    else:
+        a, b = a.view(torch.int32).long(), b.view(torch.int32).long()
+    return int((a - b).abs().max().item()) if a.numel() else 0
+
+
+def phase_adamw(model, byte_peak):
+    """The AdamW kernel at the training cell's leaf set, f32 and bf16 mu:
+    every leaf's p, mu and nu against the plain loop's, bit for bit, at
+    count 1 (lr 0, clip off) and at ADAMW_COUNT (clip ADAMW_CLIP); one
+    kernel a leaf and nothing else under the profiler; and the kernel's
+    time over all leaves beside its bound (28 or 24 bytes a parameter),
+    the plain loop's and `torch._fused_adamw_`'s (the yardstick, f32
+    mu only: it takes no bf16 moment beside f32 params)."""
+    ao = adamw_ops()
+    res = {}
+    for mu_dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        params, grads, mus, nus = adamw_state(model, mu_dtype, gen)
+        n = sum(p.numel() for p in params)
+        diffs = {}
+        for count, clip_value in ((1, 1.0), (ADAMW_COUNT, ADAMW_CLIP)):
+            s = adamw_scalars(ao, count, mu_dtype)
+            clip = torch.tensor(clip_value, device="cuda")
+            for i, (p, g, mu, nu) in enumerate(zip(params, grads, mus, nus)):
+                want = [x.clone() for x in (p, mu, nu)]
+                ao.adamw_plain(want[0], g, want[1], want[2], clip, s)
+                ao.adamw_leaves([p], [g], [mu], [nu], clip, s)
+                for name, got, w in zip(("p", "mu", "nu"), (p, mu, nu), want):
+                    if not torch.equal(got, w):
+                        diffs[f"count {count} leaf {i} {tuple(p.shape)} "
+                              f"{name}"] = (int((got != w).sum()),
+                                            ulps(got, w))
+                del want
+        torch.cuda.synchronize()
+        log(f"[adamw] mu {tag}: {len(params)} leaves, {n} params; kernel "
+            f"against the plain loop at count 1 and {ADAMW_COUNT}: "
+            + (f"{len(diffs)} tensors differ: {diffs}" if diffs
+               else "p, mu and nu equal bit for bit"))
+        if diffs:
+            raise AssertionError(f"adamw kernel differs from the plain loop "
+                                 f"(mu {tag}): {diffs}")
+        s = adamw_scalars(ao, ADAMW_COUNT, mu_dtype)
+        clip = torch.tensor(ADAMW_CLIP, device="cuda")
+        _, by_name = profile_kernels(
+            lambda: ao.adamw_leaves(params, grads, mus, nus, clip, s))
+        launched = sum(k for _, k in by_name.values())
+        log(f"[adamw] mu {tag}: one update under the profiler: "
+            + ", ".join(f"{name[:80]} x{k} {ms:.3f} ms"
+                        for name, (ms, k) in by_name.items()))
+        if by_name and (launched != len(params) or
+                        any("adamw_leaf_kernel" not in name
+                            for name in by_name)):
+            raise AssertionError(f"adamw update launched {by_name}, want "
+                                 f"{len(params)} adamw_leaf_kernel")
+        ms = cuda_time_ms(
+            lambda: ao.adamw_leaves(params, grads, mus, nus, clip, s),
+            iters=ADAMW_ITERS)
+
+        def plain():
+            for p, g, mu, nu in zip(params, grads, mus, nus):
+                ao.adamw_plain(p, g, mu, nu, clip, s)
+        plain_ms = cuda_time_ms(plain, iters=3, warmup=1)
+        # p, g and nu read and p and nu written in f32; mu read and written
+        nbytes = n * (5 * 4 + 2 * mus[0].element_size())
+        bound_ms = nbytes / byte_peak * 1e3
+        library_ms = None
+        if mu_dtype == torch.float32:
+            steps = [torch.tensor(float(ADAMW_COUNT), device="cuda")
+                     for _ in params]
+            library_ms = cuda_time_ms(
+                lambda: torch._fused_adamw_(
+                    params, grads, mus, nus, [], steps, lr=s.lr,
+                    beta1=ao.B1, beta2=ao.B2, weight_decay=s.weight_decay,
+                    eps=ao.EPS, amsgrad=False, maximize=False),
+                iters=ADAMW_ITERS)
+        if not all(torch.isfinite(p).all() for p in params):
+            raise AssertionError("non-finite params after the timed updates")
+        log(f"[adamw] mu {tag}: kernel {ms:.3f} ms over {len(params)} "
+            f"leaves ({nbytes / ms / 1e9:.3f} TB/s), bound {bound_ms:.3f} "
+            f"ms ({nbytes:.4e} B at {byte_peak / 1e12:.2f} TB/s), plain "
+            f"{plain_ms:.3f} ms, torch._fused_adamw_ "
+            + (f"{library_ms:.3f} ms" if library_ms else "not measured"))
+        res[tag] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                        bound_ms=bound_ms, bound_by="bytes", params=n,
+                        leaves=len(params), bytes=nbytes,
+                        profile_ms=sum(ms for ms, _ in by_name.values())
+                        if by_name else None)
+        del params, grads, mus, nus
+        torch.cuda.empty_cache()
+    return res
+
+
 def leaf_items(tree):
     out = [(k, x) for k, x in tree.items() if k != "blocks"]
     for i, blk in enumerate(tree["blocks"]):
@@ -746,16 +880,29 @@ def phase_slice(model, serve, fa):
                 forward_ms=forward_ms)
 
 
+def adamw_ops():
+    return importlib.import_module("volcano_tpu_torch.workloads.ops.adamw")
+
+
 def launch_counts(fa):
     return {"flash_fwd": fa.flash_fwd.launches,
             "flash_bwd_dq": fa.flash_bwd.launches_dq,
-            "flash_bwd_dkv": fa.flash_bwd.launches_dkv}
+            "flash_bwd_dkv": fa.flash_bwd.launches_dkv,
+            "adamw": adamw_ops().adamw_leaves.launches}
 
 
 def zero_counts(fa):
     fa.flash_fwd.launches = 0
     fa.flash_bwd.launches_dq = 0
     fa.flash_bwd.launches_dkv = 0
+    adamw_ops().adamw_leaves.launches = 0
+
+
+def step_launches(flash_each: int, leaves: int) -> dict:
+    """The launches a train step makes: each flash kernel flash_each
+    times, the AdamW kernel once a leaf."""
+    return {"flash_fwd": flash_each, "flash_bwd_dq": flash_each,
+            "flash_bwd_dkv": flash_each, "adamw": leaves}
 
 
 def model_flops(cfg, params, b, t):
@@ -853,7 +1000,7 @@ def phase_train(model, train, fa, flop_peak):
         f"peak memory {peak_gb:.2f} GB")
     if not all(math.isfinite(x) for x in losses + norms):
         raise AssertionError("non-finite loss or grad norm")
-    want = {k: cfg.n_layers for k in launches}
+    want = step_launches(cfg.n_layers, len(leaf_items(params)))
     if any(c != want for c in per_step):
         raise AssertionError(f"launches per step {per_step}, want {want}")
     steady = sorted(step_ms[1:])
@@ -897,7 +1044,8 @@ def phase_remat(model, train, fa):
         f"without remat {plain_counts}, with remat {remat_counts}; loss "
         f"{loss.item():.6f} / {loss_r.item():.6f}; max|dgrad| / max|grad| "
         f"{share:.3e} at {leaf} (tolerance {REMAT_SHARE})")
-    want = {"flash_fwd": 4, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+    want = {"flash_fwd": 4, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
+            "adamw": 0}
     if remat_counts != want or plain_counts != dict(want, flash_fwd=2):
         raise AssertionError("remat launch counts are off")
     if share > REMAT_SHARE or loss.item() != loss_r.item():
@@ -1107,6 +1255,7 @@ def phase_sharded(model, train, fa, bootstrap, mesh_lib, checkpoint, tr):
             torch.Generator(device="cuda").manual_seed(6), cfg, TRAIN_BATCH,
             t, mesh)
         step = train.make_train_step(cfg, optimizer, mesh)
+        n_leaves = len(leaf_items(params))
         leaves = state_leaves(train, params, state)
         nbytes = sum(x.numel() * x.element_size() for x in leaves)
         free = shutil.disk_usage(tmp).free
@@ -1208,7 +1357,7 @@ def phase_sharded(model, train, fa, bootstrap, mesh_lib, checkpoint, tr):
         f"gradient reduction alone {reduce_ms['reduce_ms']:.3f} ms in "
         f"256 MB buckets, {reduce_ms['reduce_per_leaf_ms']:.3f} ms with "
         "one collective a leaf")
-    want = {k: cfg.n_layers for k in launches}
+    want = step_launches(cfg.n_layers, n_leaves)
     if losses != tr["losses"][:RESUME_STEPS]:
         raise AssertionError("the sharded step's losses differ from "
                              "phase_train's")
@@ -1477,7 +1626,7 @@ def phase_moe(model, train, moe, fa, flop_peak):
         f"{TRAIN_BATCH * t / med_ms * 1e3:.1f}, model {flops:.4e} FLOP a "
         f"step (experts by slots, {n_params / 1e6:.1f} M params) = "
         f"{tflops:.1f} TFLOP/s, mfu_bf16_dense {tflops * 1e12 / flop_peak:.4f}")
-    want = {k: cfg.n_layers for k in launches}
+    want = step_launches(cfg.n_layers, len(leaf_items(params)))
     if any(c != want for c in per_step):
         raise AssertionError(f"MoE launches per step {per_step}, want {want}")
     if not all(math.isfinite(x) for x in losses + norms):
@@ -1571,6 +1720,7 @@ def phase_pp(model, train, pipeline, fa, bootstrap, tr):
         del params
         optimizer = train.make_optimizer()
         state = optimizer.init(pipeline.joined(outer, stages))
+        n_leaves = len(leaf_items(pipeline.joined(outer, stages)))
         torch.cuda.synchronize()
         init_gb = (torch.cuda.memory_allocated() - base) / 1e9
         batch = train.synthetic_batch(
@@ -1603,7 +1753,7 @@ def phase_pp(model, train, pipeline, fa, bootstrap, tr):
         f" (median {med_ms:.3f} against phase_train's {tr['step_ms']:.3f}); "
         f"launches per step {per_step}; memory after init {init_gb:.3f} GB, "
         f"peak {peak_gb:.3f} GB")
-    want = {k: PP_MICROBATCHES * cfg.n_layers for k in launches}
+    want = step_launches(PP_MICROBATCHES * cfg.n_layers, n_leaves)
     if any(c != want for c in per_step):
         raise AssertionError(f"pp launches per step {per_step}, want {want}")
     if not all(math.isfinite(x) for x in losses + norms) or \
@@ -5314,6 +5464,7 @@ def main() -> int:
     timing = phase_timing(fa, flop_peak, byte_peak)
     bwd_err = phase_bwd_vs_plain(fa)
     bwd = phase_bwd_timing(fa, flop_peak, byte_peak)
+    adamw = phase_adamw(model, byte_peak)
     phase_parity(model)
     phase_grad_parity(model, train)
     sl = phase_slice(model, serve, fa)
@@ -5409,10 +5560,21 @@ def main() -> int:
          "plain_ms": bwd["dkv"]["plain_ms"],
          "bound_ms": bwd["dkv"]["bound_ms"],
          "bound_by": bwd["dkv"]["bound_by"],
-         "library_ms": bwd["library_ms"], **common}]
+         "library_ms": bwd["library_ms"], **common},
+        {"name": "adamw", "route": "cuda", "design": "fused streaming pass",
+         "source": "volcano_tpu_torch/csrc/adamw.cu",
+         "replaces": None, "launches": tr["launches"]["adamw"],
+         "bit_equal_to_plain": True, "ms": adamw["f32"]["ms"],
+         "plain_ms": adamw["f32"]["plain_ms"],
+         "bound_ms": adamw["f32"]["bound_ms"],
+         "bound_by": adamw["f32"]["bound_by"],
+         "library_ms": adamw["f32"]["library_ms"], "mu_bf16": adamw["bf16"],
+         "params": adamw["f32"]["params"], "leaves": adamw["f32"]["leaves"],
+         "dtype": "float32", "card": smi}]
     for kern in kernels:
         # the kernel's time over the PyTorch call's (for dQ and dK/dV each
-        # alone against SDPA's whole backward)
+        # alone against SDPA's whole backward; AdamW against
+        # torch._fused_adamw_)
         kern["ratio_to_library"] = kern["ms"] / kern["library_ms"]
         # ptxas at the slice's head dim: registers at kernel entry (the
         # warp-specialised kernels' consumers then take 232 by setmaxnreg)

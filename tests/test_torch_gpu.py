@@ -8,7 +8,8 @@ t 8192), against the one-card step from the same weights; the MoE
 flagship with its experts over fsdp (expert parallelism) and tp, and the
 flagship pipelined over pp (GPipe, flat and a stage per slice), against
 the one-card step from the same weights; the flash kernels at the
-shapes beyond d in {128, 256} and t % 128 == 0; and one pod a GPU
+shapes beyond d in {128, 256} and t % 128 == 0; the fused AdamW kernel
+against its plain loop, bit for bit, and its refusals; and one pod a GPU
 scheduled by the port's own control plane, in process and as three
 processes over the wire, and launched on nccl.
 
@@ -843,3 +844,144 @@ def test_kernels_launch_first_from_a_fresh_thread():
     assert res.returncode == 0, res.stderr[-3000:]
     err = json.loads(res.stdout.strip().splitlines()[-1])["max_abs_err"]
     print(json.dumps({"first_launch_on_a_thread_max_abs_err": err}))
+
+
+# -- the fused AdamW kernel --------------------------------------------------
+
+# leaf shapes: a norm's 4096, lengths that leave a scalar tail of 1 to 3
+# after the 4-wide vectors (1, 3, 7, 1023, 4099), a matrix, and one whose
+# length is odd in both dims
+ADAMW_SHAPES = [(1,), (3,), (7,), (4096,), (1023,), (4099,), (64, 1000),
+                (257, 33)]
+# one leaf of p and g each given as a view at an offset of one element, so
+# that its pointers are not 16-byte aligned (every element one by one)
+ADAMW_OFFSET_LEAF = "l4"
+# each step's gradient scale: the tree's global norm is ~290 times it, so
+# the clip is off at the first and third step and on at the others; with
+# warmup_steps 2, lr(0) = 0 at the first step and steps 3 and 4 lie past
+# the warmup
+ADAMW_GRAD_SCALES = (1e-3, 0.05, 2e-3, 0.1)
+
+
+def _adamw_gpu():
+    _gpus(1)
+    return importlib.import_module("volcano_tpu_torch.workloads.ops.adamw")
+
+
+def _offset(x):
+    """x's values in a view of a buffer one element longer, starting at
+    its second element: contiguous, 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def _adamw_tree(gen, scale, offset=False):
+    tree = {f"l{i}": torch.randn(s, generator=gen, device="cuda") * scale
+            for i, s in enumerate(ADAMW_SHAPES)}
+    if offset:
+        tree[ADAMW_OFFSET_LEAF] = _offset(tree[ADAMW_OFFSET_LEAF])
+    return tree
+
+
+def _plain_leaves(ao):
+    def run(params, grads, mus, nus, clip, s):
+        for p, g, mu, nu in zip(params, grads, mus, nus, strict=True):
+            ao.adamw_plain(p, g, mu, nu, clip, s)
+    return run
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mu_dtype", [torch.float32, torch.bfloat16],
+                         ids=["mu_f32", "mu_bf16"])
+def test_adamw_kernel_equals_the_plain_loop_bit_for_bit(mu_dtype,
+                                                        monkeypatch):
+    """Four `AdamW.update`s on the card, the kernel's against the plain
+    loop's from the same state: after every step each leaf's p, mu and
+    nu are equal bit for bit, with the clip on and off, lr(0) = 0 and
+    counts past the warmup, leaves of odd lengths and a leaf whose
+    pointers are not 16-byte aligned; each kernel step launches once a
+    leaf."""
+    ao = _adamw_gpu()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = _adamw_tree(gen, 1.0, offset=True)
+    twin = {k: v.clone() for k, v in params.items()}
+    grads = [_adamw_tree(gen, s, offset=True) for s in ADAMW_GRAD_SCALES]
+    kernel_opt, plain_opt = (tt.make_optimizer(lr=1e-2, warmup_steps=2,
+                                               mu_dtype=mu_dtype)
+                             for _ in range(2))
+    kernel_state, plain_state = kernel_opt.init(params), plain_opt.init(twin)
+    for i, g in enumerate(grads):
+        norm = float(tt.global_norm(list(g.values())))
+        assert (norm > tt.MAX_GRAD_NORM) == (i % 2 == 1), norm
+        before = ao.adamw_leaves.launches
+        kernel_opt.update(params, g, kernel_state)
+        assert ao.adamw_leaves.launches == before + len(ADAMW_SHAPES)
+        with monkeypatch.context() as m:
+            m.setattr(ao, "adamw_leaves", _plain_leaves(ao))
+            plain_opt.update(twin, g, plain_state)
+        torch.cuda.synchronize()
+        if i == 0:     # lr(0) = 0
+            assert all(torch.equal(params[k], twin[k]) for k in params)
+        for part, got, want in (("p", params, twin),
+                                ("mu", kernel_state["mu"], plain_state["mu"]),
+                                ("nu", kernel_state["nu"], plain_state["nu"])):
+            for k in got:
+                assert got[k].dtype == want[k].dtype
+                assert torch.equal(got[k], want[k]), \
+                    f"step {i + 1}, {part} of {k} {tuple(got[k].shape)}: " \
+                    f"{int((got[k] != want[k]).sum())} elements differ"
+    assert kernel_state["mu"]["l0"].dtype == mu_dtype
+
+
+@pytest.mark.gpu
+def test_a_train_step_launches_the_adamw_kernel_once_a_leaf():
+    """One train step of the tiny config on the card launches the AdamW
+    kernel once for each of the model's leaves."""
+    ao = _adamw_gpu()
+    cfg = tm.tiny_config()
+    params = tm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    opt = tt.make_optimizer()
+    state = opt.init(params)
+    batch = tt.synthetic_batch(torch.Generator().manual_seed(1), cfg, 2, 32)
+    batch = {k: v.cuda() for k, v in batch.items()}
+    step = tt.make_train_step(cfg, opt)
+    before = ao.adamw_leaves.launches
+    _, _, m = step(params, state, batch)
+    torch.cuda.synchronize()
+    assert ao.adamw_leaves.launches == before + len(list(tt.leaves(params)))
+    assert torch.isfinite(m["loss"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", ["strided_p", "strided_g", "bf16_g",
+                                   "f16_mu", "shape_mu", "clip_on_cpu"])
+def test_adamw_kernel_refuses_a_leaf_it_cannot_take(fault):
+    """A CUDA leaf the kernel does not take raises before any launch and
+    leaves the state as it was: no fallback."""
+    ao = _adamw_gpu()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p, g, mu, nu = (torch.randn(64, 48, generator=gen, device="cuda")
+                    for _ in range(4))
+    clip = torch.ones((), device="cuda")
+    if fault == "strided_p":
+        p = torch.randn(48, 64, generator=gen, device="cuda").t()
+    elif fault == "strided_g":
+        g = torch.randn(48, 64, generator=gen, device="cuda").t()
+    elif fault == "bf16_g":
+        g = g.bfloat16()
+    elif fault == "f16_mu":
+        mu = mu.half()
+    elif fault == "shape_mu":
+        mu = mu.reshape(48, 64)
+    else:
+        clip = clip.cpu()
+    p0 = p.clone()
+    before = ao.adamw_leaves.launches
+    with pytest.raises(ValueError, match="adamw kernel"):
+        ao.adamw_leaves([p], [g], [mu], [nu], clip,
+                        ao.AdamWScalars(1e-2, 0.1, 1e-3, 0.01, 0.9))
+    torch.cuda.synchronize()
+    assert ao.adamw_leaves.launches == before
+    assert torch.equal(p, p0)

@@ -47,6 +47,7 @@ from torch.distributed.tensor import DTensor, Shard
 from volcano_tpu_torch.workloads import mesh as mesh_lib
 from volcano_tpu_torch.workloads import model as model_lib
 from volcano_tpu_torch.workloads.model import ModelConfig
+from volcano_tpu_torch.workloads.ops import adamw as adamw_ops
 from volcano_tpu_torch.workloads.spans import span
 
 Schedule = Callable[[int], float]
@@ -54,7 +55,7 @@ Schedule = Callable[[int], float]
 # the reference's optax chain: clip_by_global_norm(1.0), then adamw with
 # optax's default b1, b2 and eps
 MAX_GRAD_NORM = 1.0
-B1, B2, EPS = 0.9, 0.999, 1e-8
+B1, B2, EPS = adamw_ops.B1, adamw_ops.B2, adamw_ops.EPS
 # gradients are all-reduced in flat buckets of at most this many
 # elements (256 MB of f32), not one collective a leaf
 BUCKET_ELEMS = 1 << 26
@@ -131,7 +132,9 @@ class AdamW:
     with mu_hat, nu_hat bias-corrected by count (mu_hat before mu is
     cast to mu_dtype).  Weight decay applies to every leaf, norms
     included, and the first update has lr(0).  As in optax, the stored
-    mu is decayed in its own dtype: with bf16 mu, b1 is bf16(0.9)."""
+    mu is decayed in its own dtype: with bf16 mu, b1 is bf16(0.9).  The
+    leaves' update is `ops.adamw.adamw_leaves`: one fused CUDA kernel a
+    leaf on the card, its plain version's eager ops on the CPU."""
 
     def __init__(self, schedule: Schedule, weight_decay: float,
                  mu_dtype: Optional[torch.dtype] = None):
@@ -171,16 +174,12 @@ class AdamW:
             bc1 = 1.0 - B1 ** state["count"]
             bc2 = 1.0 - B2 ** state["count"]
             with span("vtp::adamw.leaves"):
-                for p, g, mu, nu in zip(leaves(params), g_leaves,
-                                        leaves(state["mu"]),
-                                        leaves(state["nu"])):
-                    p, mu, nu = local(p), local(mu), local(nu)
-                    g = g * clip
-                    m = (1 - B1) * g + self._b1_mu * mu
-                    nu.copy_((1 - B2) * g.square() + B2 * nu)
-                    u = (m / bc1) / ((nu / bc2).sqrt() + EPS)
-                    mu.copy_(m)
-                    p.sub_(lr * (u + self.weight_decay * p))
+                adamw_ops.adamw_leaves(
+                    [local(p) for p in leaves(params)], g_leaves,
+                    [local(mu) for mu in leaves(state["mu"])],
+                    [local(nu) for nu in leaves(state["nu"])], clip,
+                    adamw_ops.AdamWScalars(lr, bc1, bc2, self.weight_decay,
+                                           self._b1_mu))
         return g_norm
 
 

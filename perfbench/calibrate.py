@@ -3,13 +3,15 @@
     python3 -m perfbench.calibrate --workload <name> --seeds 1,2,3 \\
         [--control 1,2,3] [--fault 1,2,3] [--out <file.jsonl>]
 
-For each seed of `--seeds`: what the program's timed path produces (the
-training step's proof steps, or the replica's forward over the sampled
-requests, side by side in its padded batch) against the f32 reference; these give the lower readings.  For each seed of
-`--control`: the reference in fp8 put in the program's place (the
-control); for `--fault` (training cells): the reference with half of
-the batch left out, the mean taken over the rest.  One JSON line a
-reading.  No window is run: the numbers are the ones a run compares.
+The cell's driver takes the readings (`readings` in
+`perfbench/drivers/<driver>.py`).  For each seed of `--seeds`: what the
+program's timed path produces (the training step's proof steps, or the
+replica's forward over the sampled requests, side by side in its padded
+batch) against the f32 reference; these give the lower readings.  For
+each seed of `--control`: the reference in fp8 put in the program's
+place (the control); for `--fault` (training cells): the reference with
+half of the batch left out, the mean taken over the rest.  One JSON line
+a reading.  No window is run: the numbers are the ones a run compares.
 
     python3 -m perfbench.calibrate --workload <train cell> --size 1,2,3
 
@@ -20,15 +22,15 @@ memory, or that it ran out.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import sys
 import time
 
 import torch
 
-from perfbench import arrivals, cells, compare, inputs
+from perfbench import cells, inputs
 from perfbench.drivers import common
-from perfbench.drivers import serve as dserve
 from perfbench.drivers import train as dtrain
 
 
@@ -36,61 +38,18 @@ def _ints(text: str):
     return [int(x) for x in text.split(",") if x]
 
 
-def train_readings(cell, seed: int, control: bool, fault: bool, lower: bool,
-                   device):
-    mix = cell.mix
-    pool = inputs.token_pool(seed, inputs.TOKENS,
-                             (mix["proof_steps"], mix["batch"],
-                              mix["seq_len"]), cell.sizes.vocab, device)
-    out = []
-
-    def against(side, got):
-        ref = dtrain.reference(cell, seed, pool, "f32", device)
-        out.append((side, compare.train_numbers(got, ref)))
-
-    if lower:
-        against("program", dtrain.program_readings(cell, seed, device))
-    if control:
-        against("control", dtrain.reference(cell, seed, pool, "fp8", device))
-    if fault:
-        # the reference with half the batch in the program's place,
-        # against the whole batch's reference
-        half = pool[:, :max(1, mix["batch"] // 2)]
-        got = dtrain.reference(cell, seed, half, "f32", device)
-        ref = dtrain.reference(cell, seed, pool, "f32", device)
-        out.append(("fault_half_batch", compare.train_numbers(got, ref)))
-    return out
+def driver(cell):
+    """The module of the cell's driver (`perfbench/drivers/<driver>.py`)."""
+    return importlib.import_module(f"perfbench.drivers.{cell.driver}")
 
 
-
-def serve_readings(cell, seed: int, control: bool, lower: bool, device,
-                   seconds: float):
-    s, mix = cell.sizes, cell.mix
-    t, mb = mix["seq_len"], mix["max_batch"]
-    n = len(arrivals.poisson_schedule(mix["rate_per_s"], seconds))
-    pool = inputs.token_pool(seed, inputs.REQUESTS, (max(n, mb), t), s.vocab,
-                             device)
-    keep = dserve.sample(seed, n, mix, t)
-    out = []
-    ref = dserve.reference_answers(cell, seed, pool, keep, "f32", device)
-    if lower:
-        # the sampled requests side by side in the window's padded batch
-        # (a row's logits do not depend on its neighbours)
-        js = sorted(keep)
-        params = inputs.make_params(s, seed, device)
-        rows = torch.cat([pool[js], pool[:mb]])    # the padding after
-        fwd = dserve.Forward(params, common.model_config(s), rows, mb,
-                             {i: keep[j] for i, j in enumerate(js)}, device)
-        for a in range(0, len(js), mb):
-            fwd(min(mb, len(js) - a))
-        answers = {js[i]: x for i, x in fwd.answers.items()}
-        del fwd, params
-        common.free(device)
-        out.append(("program", dserve.numbers(answers, ref)))
-    if control:
-        ctl = dserve.reference_answers(cell, seed, pool, keep, "fp8", device)
-        out.append(("control", dserve.numbers(ctl, ref)))
-    return out
+def readings(cell, seed: int, control: bool, fault: bool, lower: bool,
+             device, seconds: float):
+    """[(what, numbers)] of one seed, from the cell's driver's
+    `readings`: the program's (`lower`), the control's and the faults'
+    the driver has, each against the f32 reference."""
+    return driver(cell).readings(cell, seed, control, fault, lower, device,
+                                 seconds)
 
 
 def size(cell, batches, device):
@@ -145,12 +104,8 @@ def main(argv=None) -> int:
     try:
         for seed in sorted(lower | control | fault):
             t0 = time.perf_counter()
-            if cell.driver == "train":
-                got = train_readings(cell, seed, seed in control,
-                                     seed in fault, seed in lower, device)
-            else:
-                got = serve_readings(cell, seed, seed in control,
-                                     seed in lower, device, args.seconds)
+            got = readings(cell, seed, seed in control, seed in fault,
+                           seed in lower, device, args.seconds)
             for what, numbers in got:
                 line = json.dumps({"workload": cell.name, "seed": seed,
                                    "what": what, "numbers": numbers,

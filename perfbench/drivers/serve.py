@@ -26,7 +26,7 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from perfbench import arrivals, compare, flops, inputs
+from perfbench import arrivals, cells, compare, flops, inputs
 from perfbench.drivers import common
 from perfbench.harness import Outcome
 from perfbench.reference import decoder
@@ -41,6 +41,11 @@ REF_ROWS = 4       # requests the reference runs at once
 def _program():
     from volcano_tpu_torch.workloads import model, serve
     return model, serve
+
+
+def accepts(config: Dict[str, Any]) -> None:
+    """Raises where the dense block cannot run `config` (`cells.sizes`)."""
+    cells.sizes(config)
 
 
 def sample(seed: int, n_requests: int, mix, t: int):
@@ -141,6 +146,40 @@ def reference_answers(cell, seed: int, pool, keep, kind: str, device):
 def numbers(answers, ref) -> Dict[str, float]:
     return {"logit_err": max(compare.rel_err(answers[j], ref[j])
                              for j in ref)}
+
+
+def readings(cell, seed: int, control: bool, fault: bool, lower: bool,
+             device, seconds: float):
+    """`perfbench.calibrate`'s readings: the program's forward over the
+    requests a `seconds` window samples and the fp8 control, each
+    against the f32 reference (a served cell has no half-batch fault:
+    `fault` is not used)."""
+    s, mix = cell.sizes, cell.mix
+    t, mb = mix["seq_len"], mix["max_batch"]
+    n = len(arrivals.poisson_schedule(mix["rate_per_s"], seconds))
+    pool = inputs.token_pool(seed, inputs.REQUESTS, (max(n, mb), t), s.vocab,
+                             device)
+    keep = sample(seed, n, mix, t)
+    out = []
+    ref = reference_answers(cell, seed, pool, keep, "f32", device)
+    if lower:
+        # the sampled requests side by side in the window's padded batch
+        # (a row's logits do not depend on its neighbours)
+        js = sorted(keep)
+        params = inputs.make_params(s, seed, device)
+        rows = torch.cat([pool[js], pool[:mb]])    # the padding after
+        fwd = Forward(params, common.model_config(s), rows, mb,
+                      {i: keep[j] for i, j in enumerate(js)}, device)
+        for a in range(0, len(js), mb):
+            fwd(min(mb, len(js) - a))
+        answers = {js[i]: x for i, x in fwd.answers.items()}
+        del fwd, params
+        common.free(device)
+        out.append(("program", numbers(answers, ref)))
+    if control:
+        ctl = reference_answers(cell, seed, pool, keep, "fp8", device)
+        out.append(("control", numbers(ctl, ref)))
+    return out
 
 
 def run(cell, seed: int, seconds: float, trace_on: bool, device,

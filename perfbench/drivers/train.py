@@ -22,7 +22,7 @@ from typing import Any, Dict
 
 import torch
 
-from perfbench import compare, flops, inputs
+from perfbench import cells, compare, flops, inputs
 from perfbench.drivers import common
 from perfbench.harness import Outcome
 from perfbench.reference import decoder
@@ -35,6 +35,11 @@ STEP_SPAN = "perfbench::step"
 def _program():
     from volcano_tpu_torch.workloads import train
     return train
+
+
+def accepts(config: Dict[str, Any]) -> None:
+    """Raises where the dense block cannot run `config` (`cells.sizes`)."""
+    cells.sizes(config)
 
 
 def make_optimizer(opt: Dict[str, float]):
@@ -105,6 +110,35 @@ def program_readings(cell, seed: int, device) -> Dict[str, Any]:
     del params, state, step, opt
     common.free(device)
     return got
+
+
+def readings(cell, seed: int, control: bool, fault: bool, lower: bool,
+             device, seconds: float = 0.0):
+    """`perfbench.calibrate`'s readings: the program's proof steps, the
+    fp8 control and the half-batch fault, each against the f32
+    reference (`seconds` is not used: no window runs)."""
+    mix = cell.mix
+    pool = inputs.token_pool(seed, inputs.TOKENS,
+                             (mix["proof_steps"], mix["batch"],
+                              mix["seq_len"]), cell.sizes.vocab, device)
+    out = []
+
+    def against(side, got):
+        ref = reference(cell, seed, pool, "f32", device)
+        out.append((side, compare.train_numbers(got, ref)))
+
+    if lower:
+        against("program", program_readings(cell, seed, device))
+    if control:
+        against("control", reference(cell, seed, pool, "fp8", device))
+    if fault:
+        # the reference with half the batch in the program's place,
+        # against the whole batch's reference
+        half = pool[:, :max(1, mix["batch"] // 2)]
+        got = reference(cell, seed, half, "f32", device)
+        ref = reference(cell, seed, pool, "f32", device)
+        out.append(("fault_half_batch", compare.train_numbers(got, ref)))
+    return out
 
 
 def run(cell, seed: int, seconds: float, trace_on: bool, device,

@@ -51,27 +51,41 @@ def forward_flops(s: Sizes, b: int, t: int) -> float:
 # -- the flash kernels ---------------------------------------------------
 
 def flash_costs(kernel: str, b: int, t: int, h: int, d: int,
-                elem: int = 2) -> Tuple[float, float]:
-    """(FLOP, bytes) one causal launch of `kernel` needs at [b, t, h, d]
-    with `elem`-byte q/k/v.  Each product is 2 d a score over the
-    t (t + 1) / 2 causal scores of a head.
+                elem: int = 2, d_v: int = None, h_kv: int = None
+                ) -> Tuple[float, float]:
+    """(FLOP, bytes) one causal launch of `kernel` needs with `h` query
+    heads of q/k head dim `d`, `h_kv` key/value heads (default `h`) of v
+    head dim `d_v` (default `d`), [b, t] positions and `elem`-byte
+    tensors.  A product over the t (t + 1) / 2 causal scores of a head
+    is 2 d a score where it contracts or spans q and k (Q K^T, dK, dQ),
+    2 d_v where it contracts or spans v (P V, dP, dV).
 
     flash_fwd:     S = Q K^T, O = P V; reads q, k, v; writes o, lse.
     flash_bwd_dq:  dQ = dS K (its S and dP recompute flash_bwd_dkv's),
                    Delta = rowsum(dO O); reads q, k, v, do, out, lse;
                    writes dq, Delta.
     flash_bwd_dkv: S, dP = dO V^T, dV = P^T dO, dK = dS^T Q; reads q,
-                   k, v, do, lse, Delta; writes dk, dv."""
+                   k, v, do, lse, Delta; writes dk, dv.
+
+    With the defaults every value is that of one head dim for q, k and v
+    and as many key/value heads as query heads."""
+    d_v = d if d_v is None else d_v
+    h_kv = h if h_kv is None else h_kv
     scores = b * h * t * (t + 1) / 2
-    tile = b * t * h * d * elem            # one [b, t, h, d] tensor
+    qk = 2.0 * d * scores                  # one product over d
+    pv = 2.0 * d_v * scores                # one product over d_v
+    q = b * t * h * d * elem               # q, dq
+    o = b * t * h * d_v * elem             # o, do
+    k = b * t * h_kv * d * elem            # k, dk
+    v = b * t * h_kv * d_v * elem          # v, dv
     rows = b * h * t * 4                   # one f32 [b, h, t]
     if kernel == "flash_fwd":
-        return 2 * 2.0 * d * scores, 3 * tile + tile + rows
+        return qk + pv, q + k + v + o + rows
     if kernel == "flash_bwd_dq":
-        return 1 * 2.0 * d * scores + 2.0 * b * h * t * d, \
-            5 * tile + rows + tile + rows
+        return qk + 2.0 * b * h * t * d_v, \
+            q + k + v + o + o + rows + q + rows
     if kernel == "flash_bwd_dkv":
-        return 4 * 2.0 * d * scores, 4 * tile + 2 * rows + 2 * tile
+        return 2 * qk + 2 * pv, q + k + v + o + 2 * rows + k + v
     raise ValueError(f"unknown kernel {kernel!r}")
 
 

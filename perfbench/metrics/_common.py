@@ -18,15 +18,18 @@ def group_seconds(trace, group: str, exclude=()) -> float:
 
 def flash_roofline(ctx) -> Optional[float]:
     """Sum of the launches' bounds over the sum of their device time, in
-    percent, over the flash kernels the cell launches."""
+    percent, over the flash kernels the cell launches.  The counter
+    `attention_shape` is (b, t, h, d), or with the v head dim and the
+    key/value heads (b, t, h, d, d_v[, h_kv]) where they differ."""
     if ctx.trace is None:
         return None
-    b, t, h, d = ctx.counters["attention_shape"]
+    shape = tuple(ctx.counters["attention_shape"])
     bound_s = time_s = 0.0
     for kernel in ctx.counters["flash_kernels"]:
         ops = [op for op in ctx.trace.in_window()
                if flops.kernel_group(op.name) == kernel]
-        one = flops.bound(*flops.flash_costs(kernel, b, t, h, d),
+        one = flops.bound(*flops.flash_costs(kernel, *shape[:4], 2,
+                                             *shape[4:]),
                           ctx.flop_peak, ctx.byte_peak)[0]
         bound_s += one * len(ops)
         time_s += sum(op.dur for op in ops)

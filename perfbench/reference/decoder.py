@@ -12,6 +12,11 @@ linear-warmup cosine schedule.
 Parameters are dicts in the port's layout (`W` [d_in, d_out], applied
 as x @ W), handed over by the benchmark.  Each layer is recomputed in
 the backward (`checkpoint`), so the reference fits beside its state.
+`train_replicas` is `train` over a copy of the params on each of several
+devices, each taking a block of the batch's rows: the gradients are
+summed leaf by leaf on the device that owns the leaf, which updates it
+and holds its moments, and the updated leaf is copied to the others;
+plain tensors copied from device to device, in one process.
 
 `Precision("fp8")` is the control: every matmul operand rounded to
 float8 e4m3 (a scale a tensor) and multiplied in f32, the step below
@@ -234,5 +239,69 @@ def train(params, batches, cfg, opt, prec: Precision) -> Dict[str, Any]:
         if i == 0:
             out["first"] = clipped
         del g
+    del state
+    return out
+
+
+def owners(tree: Dict[str, Any], n: int) -> Dict[str, int]:
+    """Each leaf's owner among n devices: the largest leaf first, each to
+    the device with the fewest elements so far."""
+    sizes = {name: x.numel() for name, x in named(tree)}
+    load = [0] * n
+    out = {}
+    for name in sorted(sizes, key=lambda k: (-sizes[k], k)):
+        k = min(range(n), key=lambda i: (load[i], i))
+        out[name] = k
+        load[k] += sizes[name]
+    return out
+
+
+def train_replicas(replicas, batches, cfg, opt, prec: Precision,
+                   map_=map) -> Dict[str, Any]:
+    """`train` with `replicas`, one param tree a device (the same values;
+    all updated in place).  Each step, replica k takes the k-th of
+    equal blocks of the batch's rows; the loss is the rows' mean; each
+    leaf's gradient is the blocks' gradients weighted by their rows and
+    summed on its owner (`owners`), which runs AdamW on it; the leaf is
+    then copied to every other replica.  `map_` takes the replicas'
+    gradients (a thread pool's `map` takes them at once, a thread a
+    device)."""
+    n = len(replicas)
+    own = owners(replicas[0], n)
+    leaves = [dict(named(r)) for r in replicas]
+    view = tree_like(replicas[0], {name: leaves[k][name]
+                                   for name, k in own.items()})
+    state: Dict[str, Any] = {"count": 0, "mu": {}, "nu": {}}
+    out: Dict[str, Any] = {"losses": []}
+    for i, tokens in enumerate(batches):
+        b = tokens.shape[0]
+        blocks = [r for r in torch.arange(b).tensor_split(n) if len(r)]
+
+        def one(k):
+            dev = leaves[k]["embed"].device
+            if dev.type == "cuda":
+                torch.cuda.set_device(dev)
+            return grads(replicas[k], tokens[blocks[k]].to(dev), cfg, prec)
+
+        done = list(map_(one, range(len(blocks))))
+        values = [value * (len(rows) / b)
+                  for rows, (value, _) in zip(blocks, done)]
+        parts = [g for _, g in done]
+        del done
+        out["losses"].append(sum(float(v) for v in values))
+        g = {}
+        for name, k in own.items():
+            dev = leaves[k][name].device
+            g[name] = sum(part.pop(name).to(dev) * (len(rows) / b)
+                          for rows, part in zip(blocks, parts))
+        clipped = adamw_step(view, g, state, opt)
+        if i == 0:
+            out["first"] = clipped
+        del g, parts
+        with torch.no_grad():
+            for k in range(n):
+                for name, p in leaves[k].items():
+                    if own[name] != k:
+                        p.copy_(leaves[own[name]][name])
     del state
     return out

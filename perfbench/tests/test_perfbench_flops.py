@@ -84,3 +84,62 @@ def test_bound_names_its_side():
 ])
 def test_kernel_group(name, group):
     assert flops.kernel_group(name) == group
+
+
+def _flash_costs_before(kernel, b, t, h, d, elem=2):
+    """`flash_costs` as it was with one head dim and as many key/value
+    heads as query heads."""
+    scores = b * h * t * (t + 1) / 2
+    tile = b * t * h * d * elem
+    rows = b * h * t * 4
+    if kernel == "flash_fwd":
+        return 2 * 2.0 * d * scores, 3 * tile + tile + rows
+    if kernel == "flash_bwd_dq":
+        return 1 * 2.0 * d * scores + 2.0 * b * h * t * d, \
+            5 * tile + rows + tile + rows
+    return 4 * 2.0 * d * scores, 4 * tile + 2 * rows + 2 * tile
+
+
+@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv"])
+@pytest.mark.parametrize("shape", [(3, 4096, 32, 128), (32, 2048, 32, 128),
+                                   (1, 4096, 32, 128), (1, 256, 2, 128),
+                                   (8, 2048, 16, 64), (2, 1000, 7, 96),
+                                   (5, 8191, 40, 256)])
+@pytest.mark.parametrize("elem", [2, 4])
+def test_flash_costs_at_the_defaults_are_the_old_ones_bit_for_bit(
+        kernel, shape, elem):
+    new = flops.flash_costs(kernel, *shape, elem)
+    old = _flash_costs_before(kernel, *shape, elem)
+    assert new == old
+    assert [type(x) for x in new] == [type(x) for x in old]
+    assert flops.flash_costs(kernel, *shape, elem, shape[3], shape[2]) == old
+
+
+def test_flash_costs_with_split_head_dims_by_hand():
+    # MLA with no q-LoRA: 16 heads, q/k 128 + 64 rope = 192, v 128
+    b, t, h, d, dv, hkv = 2, 8192, 16, 192, 128, 16
+    scores = b * h * t * (t + 1) / 2
+    q, o = b * t * h * d * 2, b * t * h * dv * 2
+    k, v = b * t * hkv * d * 2, b * t * hkv * dv * 2
+    rows = b * h * t * 4
+    fwd = flops.flash_costs("flash_fwd", b, t, h, d, 2, dv, hkv)
+    assert fwd == (2 * 192 * scores + 2 * 128 * scores,
+                   q + k + v + o + rows)
+    dq = flops.flash_costs("flash_bwd_dq", b, t, h, d, 2, dv, hkv)
+    assert dq == (2 * 192 * scores + 2 * b * h * t * 128,
+                  q + k + v + 2 * o + q + 2 * rows)
+    dkv = flops.flash_costs("flash_bwd_dkv", b, t, h, d, 2, dv, hkv)
+    assert dkv == (2 * 2 * 192 * scores + 2 * 2 * 128 * scores,
+                   q + k + v + o + 2 * rows + k + v)
+    # the padded path would be charged 192 for v too
+    padded = flops.flash_costs("flash_fwd", b, t, h, d)
+    assert padded[0] > fwd[0] and padded[1] > fwd[1]
+
+
+def test_grouped_kv_heads_read_fewer_k_v_bytes():
+    b, t, h, d = 1, 4096, 32, 128
+    whole = flops.flash_costs("flash_fwd", b, t, h, d)
+    grouped = flops.flash_costs("flash_fwd", b, t, h, d, 2, d, 8)
+    assert grouped[0] == whole[0]
+    assert whole[1] - grouped[1] == 2 * b * t * (h - 8) * d * 2

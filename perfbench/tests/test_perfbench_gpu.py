@@ -17,15 +17,18 @@ from perfbench import calibrate, cells, compare
 pytestmark = pytest.mark.gpu
 
 
-def need_card():
+def need_cards(workload):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    chips = cells.cell(workload).chips
+    if torch.cuda.device_count() < chips:
+        pytest.skip(f"{workload} needs {chips} CUDA devices")
 
 
 @pytest.mark.parametrize("workload", [w["name"] for w in
                                       cells.benchmark()["workloads"]])
 def test_cell_runs_and_is_correct(workload):
-    need_card()
+    need_cards(workload)
     proc = subprocess.run(
         [sys.executable, "-m", "perfbench.run", "--workload", workload,
          "--seed", "2147483999", "--seconds", "3", "--trace", "0"],
@@ -39,13 +42,10 @@ def test_cell_runs_and_is_correct(workload):
 @pytest.mark.parametrize("workload", [w["name"] for w in
                                       cells.benchmark()["workloads"]])
 def test_control_fails_at_the_cells_size(workload):
-    need_card()
+    need_cards(workload)
     cell = cells.cell(workload)
     device = torch.device("cuda", 0)
-    if cell.driver == "train":
-        got = calibrate.train_readings(cell, 3, True, False, False, device)
-    else:
-        got = calibrate.serve_readings(cell, 3, True, False, device, 10.0)
+    got = calibrate.readings(cell, 3, True, False, False, device, 10.0)
     (what, numbers), = got
     assert what == "control"
     ok, checks = compare.judge(numbers, cell.limits)

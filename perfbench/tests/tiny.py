@@ -10,6 +10,19 @@ from perfbench import cells
 BENCH = cells.benchmark()
 
 
+def with_pending(name: str, bench=None):
+    """`bench` (BENCHMARK.json by default) with the entries of the
+    pending cell `name` (`perfbench/pending/<name>.json`) added."""
+    bench = copy.deepcopy(cells.benchmark() if bench is None else bench)
+    pending = cells.load_json(cells.PKG / "pending" / f"{name}.json")
+    bench["workloads"].append(pending["workload"])
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if m["name"] in pending["listed_in"]:
+            m["workloads"].append(name)
+    bench["per_layer"] += pending["per_layer"]
+    return bench
+
+
 def config(dtype: str = "float32"):
     return {"name": "tiny", "hidden_size": 256, "intermediate_size": 384,
          "max_position_embeddings": 256, "num_attention_heads": 2,
